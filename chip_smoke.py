@@ -4,7 +4,12 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # the smoke run below
+    python3 chip_smoke.py --kernels        # phases 1-3 only: build and check
     python3 chip_smoke.py --profile DIR    # step breakdown of phase 4 only
+
+It imports the port alone: the run fails if ``jax``, ``jaxlib`` or the JAX
+package ``sibelia_tpu`` was imported by the end.  The port builds its CUDA
+kernels (nvcc) and its native C++ host libraries (g++) from its own sources.
 
 Phases, each of which fails the run:
   1. build    torch/CUDA versions, the card's name and power limit, and both
@@ -15,8 +20,14 @@ Phases, each of which fails the run:
               {1, 1000, 32768+7, 2^22+13}, one segment of 2^20 rows, a
               k == 32 all-T case and the main path's shapes (the 32 MB input
               below at k = 30, and at k = 5000 by prefix doubling), with nv
-              in {0, n, inside a segment}; kernel and plain times beside
-              each other;
+              in {0, n, inside a segment}; then the edge cases of
+              ``scan_edge_cases`` at the kernel's tile (n = 1, n around one
+              tile, n not a multiple of 4, one segment over all rows, every
+              row its own segment, segments of exactly one tile, a verdict
+              flag on the first or last row only, nv on a tile boundary),
+              each also on columns whose base pointer is 4 bytes past a
+              16-byte boundary; kernel and plain times beside each other,
+              and the kernel's bound (24 B/row at 3.35 TB/s);
   3. gotoh    the Gotoh kernel against its plain version, all four planes
               bit-equal, at B in {1, 7, 8, 1000, 4096} for T = 128 and at
               B = 64 for T in {16, 37}: related and unrelated pairs of
@@ -28,8 +39,9 @@ Phases, each of which fails the run:
               field and the candidate bitmap identical;
   4b. enum_k  enumeration of the same input at k in {100, 1000, 5000}, the
               loose preset's k > 32 values, by prefix doubling: the port on
-              the card against the host native enumeration (which the CPU
-              tests hold to the JAX device path), every field identical;
+              the card against the port's host native enumeration
+              (native/ranking.cpp, which the CPU tests hold to the JAX
+              package's), every field identical;
               card and host seconds, and a step run with ms per doubling
               round;
   5. e2e      ``sibelia_tpu_torch.cli.sibelia -s loose -m 5000`` on 4 strains
@@ -75,6 +87,11 @@ ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 COMP = np.arange(256, dtype=np.uint8)
 COMP[list(b"ACGT")] = list(b"TGCA")
 MAIN_K, MAIN_MIN_BRANCH = 30, 150
+# Peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, and the
+# float32 rate outside the tensor cores.  The data sheet lists no int32
+# rate; the card's is lower, so a bound reckoned with this one still holds.
+HBM_BYTES_PER_S = 3.35e12
+PLAIN_OPS_PER_S = 67e12
 ENUM_KS = (100, 1000, 5000)  # the loose preset's k > 32 values
 BIG_K = ENUM_KS[-1]
 
@@ -165,6 +182,97 @@ def nv_cases(sk1, sk2):
     return sorted({0, n, inner})
 
 
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least ms the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the
+    plain float32 rate, whichever is larger; and which of the two."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PLAIN_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def scan_bound_ms(n: int) -> tuple[float, str]:
+    """Four int32 columns read and two written, 24 B/row; about 20
+    integer operations a row (two key compares, the verdict flag, three
+    scan steps)."""
+    return bound_ms(24 * n, 20 * n)
+
+
+def gotoh_bound_ms(B: int, T: int) -> tuple[float, str]:
+    """Two uint8[B, T] code rows read, four int8[B, T, T] planes written;
+    about 20 integer operations a cell (kernels/csrc/gotoh.cu)."""
+    return bound_ms(2 * B * T + 4 * B * T * T, 20 * B * T * T)
+
+
+QUIET = 9  # an aux value that sets no verdict flag when its neighbours agree
+
+
+def scan_edge_cases(tile: int, seed: int = SEED):
+    """The segment scan's edge cases around a tile of `tile` rows: a list of
+    (name, [k1, k2, aux, order] int32 numpy columns, nv values).  `quiet`
+    columns set the verdict flag on the listed rows only, so a verdict has
+    to travel the length of its segment, across tiles, in either
+    direction."""
+    rng = np.random.default_rng(seed)
+
+    def case(name, lengths, nvs, hits=None):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        n = int(lengths.sum())
+        key = np.repeat(np.arange(len(lengths), dtype=np.int64), lengths)
+        if hits is None:
+            aux = rng.integers(0, 64, n)
+        else:
+            aux = np.full(n, QUIET)
+            aux[np.asarray(hits, dtype=np.int64)] = 0
+        cols = [key // 5, key, aux, rng.permutation(n)]
+        return (name, [c.astype(np.int32) for c in cols],
+                sorted({nv for nv in nvs if 0 <= nv <= n}))
+
+    def random_lengths(n, longest):
+        lengths = rng.integers(1, longest + 1, n)
+        lengths = lengths[:np.searchsorted(np.cumsum(lengths), n) + 1]
+        lengths[-1] -= lengths.sum() - n
+        return lengths
+
+    out = [case("n = 1", [1], (0, 1))]
+    for n in (tile - 1, tile, tile + 1):
+        out.append(case(f"n = {n}, lengths 1-7", random_lengths(n, 7),
+                        (0, n, n // 2)))
+    n = 2 * tile + 3
+    out.append(case("n % 4 = 3, quiet, lengths 1-300", random_lengths(n, 300),
+                    (0, n, tile, tile + 1),
+                    hits=rng.integers(0, n, max(1, n // 500))))
+    n = 3 * tile + 5
+    for what, hits in (("no flag", []), ("flag on row 0", [0]),
+                       ("flag on the last row", [n - 1]),
+                       ("flag mid-way", [n // 2])):
+        out.append(case(f"one segment of {n} rows, {what}", [n],
+                        (0, n, tile, 2 * tile, n // 2), hits=hits))
+    n = 2 * tile + 1
+    out.append(case("every row its own segment", np.ones(n, np.int64),
+                    (0, n, tile, 17)))
+    for what, hits in (("middle", [tile + tile // 2]), ("first row", [tile]),
+                       ("last row", [2 * tile - 1]),
+                       ("rows either side", [tile - 1, 2 * tile])):
+        out.append(case(f"segments of one tile, flag in the second: {what}",
+                        [tile, tile, tile, 5],
+                        (0, 3 * tile + 5, tile, 2 * tile), hits=hits))
+    out.append(case("segments astride the tiles, quiet",
+                    [tile // 2, tile, tile, 3],
+                    (0, 2 * tile + tile // 2 + 3, tile, tile // 2),
+                    hits=[tile // 2 + 1, 2 * tile + tile // 2 + 1]))
+    return out
+
+
+def off_boundary(t):
+    """A contiguous copy of `t` whose first element lies 4 bytes past a
+    16-byte boundary."""
+    import torch
+    padded = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    padded[1:] = t
+    return padded[1:]
+
+
 def compare_scan(name: str, cols, nv, device, reps: int) -> tuple[float, float, int]:
     """Kernel vs plain on one input: (kernel ms, plain ms, max |diff|);
     raises unless bit-equal."""
@@ -185,12 +293,37 @@ def compare_scan(name: str, cols, nv, device, reps: int) -> tuple[float, float, 
     return ms, plain_ms, err
 
 
+def scan_breakdown(cols, nv, reps: int = 5) -> dict[str, float]:
+    """Mean device ms of each CUDA kernel inside one segment scan call, from
+    a torch.profiler window over `reps` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sibelia_tpu_torch.kernels.enum_scan import enum_segment_scan
+    n = cols[0].shape[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            enum_segment_scan(*cols, nv, n)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0],
+            "self_device_time_total") else "self_cuda_time_total")
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and "::k_" in e.key:
+            name = e.key.split("::")[-1].split("(")[0]
+            out[name] = getattr(e, attr) / 1e3 / reps
+    return out
+
+
 def phase_kernel(device, main_codes, reps: int = 5) -> dict:
     """Kernel vs plain at every listed shape; the last timing row is the
     main path's shape."""
     import torch
     from sibelia_tpu_torch.index.enum_device import sorted_columns
     from sibelia_tpu_torch.index.enumeration import build_supergenome
+    from sibelia_tpu_torch.kernels.enum_scan import TILE_ROWS
     rng = np.random.default_rng(SEED)
     max_err = 0
     for n in (1, 1000, 32768 + 7, (1 << 22) + 13):
@@ -210,15 +343,33 @@ def phase_kernel(device, main_codes, reps: int = 5) -> dict:
     codes, _ = build_supergenome([chrom, chrom[::-1].copy()])
     *cols, nv = sorted_columns(torch.from_numpy(codes).to(device), 32)
     max_err = max(max_err, compare_scan("k=32 all-T", cols, nv, device, 1)[2])
+    for name, cols, nvs in scan_edge_cases(TILE_ROWS):
+        cols = [torch.from_numpy(c).to(device) for c in cols]
+        for at, cs in (("", cols),
+                       (", off a 16-byte boundary",
+                        [off_boundary(c) for c in cols])):
+            if cs[0].data_ptr() % 16 != (4 if at else 0):
+                raise RuntimeError("the columns are not placed as asked")
+            for nv in nvs:
+                max_err = max(max_err, compare_scan(name + at, cs, nv, device,
+                                                    1)[2])
     *cols, nv = sorted_columns(main_codes, BIG_K)
     big_ms, big_plain_ms, big_err = compare_scan(
         f"main path k={BIG_K}", cols, nv, device, reps)
     del cols
     *cols, nv = sorted_columns(main_codes, MAIN_K)
     ms, plain_ms, err = compare_scan("main path k=30", cols, nv, device, reps)
+    n = cols[0].shape[0]
+    log("  inside one call at k=30 (torch.profiler, ms): " + ", ".join(
+        f"{name} {t:.3f}" for name, t in scan_breakdown(cols, nv).items()))
+    bound, bound_by = scan_bound_ms(n)
+    log(f"  main path shape: n={n}, bound {bound:.3f} ms by {bound_by} "
+        f"(24 B/row at {HBM_BYTES_PER_S / 1e12:g} TB/s), kernel at "
+        f"{bound / ms:.0%} of it")
     return {"max_abs_err": max(max_err, err, big_err), "ms": ms,
             "plain_ms": plain_ms, "big_ms": big_ms,
-            "big_plain_ms": big_plain_ms}
+            "big_plain_ms": big_plain_ms, "bound_ms": bound,
+            "bound_by": bound_by}
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -285,7 +436,11 @@ def phase_gotoh(device, reps: int = 5) -> dict:
     ms, plain_ms, err = compare_gotoh(
         "reference shape", gotoh_pairs(rng, 4096, GOTOH_T), GOTOH_T, device,
         reps)
-    return {"max_abs_err": max(max_err, err), "ms": ms, "plain_ms": plain_ms}
+    bound, bound_by = gotoh_bound_ms(4096, GOTOH_T)
+    log(f"  reference shape: bound {bound:.3f} ms by {bound_by}, kernel at "
+        f"{bound / ms:.0%} of it")
+    return {"max_abs_err": max(max_err, err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -378,10 +533,10 @@ def phase_enum_k(device, strains, gpu: str) -> dict:
         t_card = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         t0 = time.perf_counter()
-        want = port_enum.host.enumerate_bifurcations(strains, k)
+        want = port_enum.enumerate_bifurcations_host(strains, k)
         t_host = time.perf_counter() - t0
-        # the JAX package's device paths, which the port twins, return chr
-        # and pos as int64; its native host path as int32
+        # the device path returns chr and pos as int64, the native host
+        # path as int32
         same_enumeration(got, want, same_dtypes=False)
         if got.count <= 0:
             raise RuntimeError(f"no bifurcations at k = {k}")
@@ -430,8 +585,8 @@ def run_cli(device_name: str, fasta: str, outdir: str, tpath: str) -> float:
 
 def phase_e2e(strains, work: str) -> dict:
     from sibelia_tpu_torch.core.platform import LAUNCHES, reset_counts
-    # warm-up on a small input: builds the shared native host engines (g++)
-    # so that no timed run below pays for a build
+    # warm-up on a small input: builds the port's native host engines
+    # (g++) so that no timed run below pays for a build
     small = os.path.join(work, "small.fasta")
     write_fasta(small, [s[:300_000] for s in strains[:2]])
     t0 = time.perf_counter()
@@ -567,8 +722,12 @@ def phase_csibelia(device, work: str) -> dict:
                            "and the final one)")
     ms, plain_ms, err = compare_gotoh("largest gap batch of the run", largest,
                                       GOTOH_T, device, 5)
+    bound, bound_by = gotoh_bound_ms(len(largest), GOTOH_T)
+    log(f"  largest gap batch: bound {bound:.3f} ms by {bound_by}, kernel at "
+        f"{bound / ms:.0%} of it")
     return {"launches": launches, "card_s": t_card, "cpu_s": t_cpu,
-            "largest": {"B": len(largest), "ms": ms, "plain_ms": plain_ms},
+            "largest": {"B": len(largest), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound},
             "max_abs_err": err}
 
 
@@ -670,6 +829,8 @@ def gpu_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="build and check both kernels only (phases 1-3)")
     ap.add_argument("--profile", metavar="DIR",
                     help="time the steps of the phase 4 enumeration only")
     args = ap.parse_args()
@@ -715,6 +876,9 @@ def main() -> int:
     del codes_d
     log("[gotoh] Gotoh kernel vs plain PyTorch, all four planes bit-equal")
     dirs = phase_gotoh(device)
+    if args.kernels:
+        log(f"  {gpu}; took {time.perf_counter() - t_run:.1f} s")
+        return 0
     log("[enum] k=30 min_branch=150 enumeration, card vs CPU")
     phase_enumeration(device, strains)
     log(f"[enum_k] k in {ENUM_KS} enumeration by prefix doubling, card vs "
@@ -729,21 +893,26 @@ def main() -> int:
         "gap batching, 2.8 Mbp reference vs contigs, card vs CPU")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         csib = phase_csibelia(device, work)
-    if any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules):
-        raise RuntimeError("jax was imported")
+    loaded = sorted({m.split(".")[0] for m in sys.modules}
+                    & {"jax", "jaxlib", "sibelia_tpu"})
+    if loaded:
+        raise RuntimeError(f"the run imported {loaded}: the port stands alone")
     kernels = [{
         "name": "enum_segment_scan", "route": "cuda",
         "source": "sibelia_tpu_torch/kernels/csrc/enum_scan.cu",
         "replaces": "sibelia_tpu/kernels/enum_scan.py:276",
         "launches": e2e["launches"]["enum_segment_scan"],
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
-        "plain_ms": scan["plain_ms"]}, {
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": None}, {
         "name": "gotoh_dirs", "route": "cuda",
         "source": "sibelia_tpu_torch/kernels/csrc/gotoh.cu",
         "replaces": "sibelia_tpu/kernels/gotoh_pallas.py:122",
         "launches": csib["launches"]["gotoh_dirs"],
         "max_abs_err": max(dirs["max_abs_err"], csib["max_abs_err"]),
-        "ms": dirs["ms"], "plain_ms": dirs["plain_ms"]}]
+        "ms": dirs["ms"], "plain_ms": dirs["plain_ms"],
+        "bound_ms": dirs["bound_ms"], "bound_by": dirs["bound_by"],
+        "library_ms": None}]
     log(f"[done] k={BIG_K} shape: segment scan kernel {scan['big_ms']:.3f} "
         f"ms, plain {scan['big_plain_ms']:.3f} ms; chip_smoke took "
         f"{time.perf_counter() - t_run:.1f} s")

@@ -6,12 +6,12 @@ runs the port's Sibelia CLI with C-Sibelia's fixed flag set (-q
 --correctboundaries --nopostprocess --allstages --lastk 30 -m <minblocksize>
 -s <preset> -i <maxiter> -r), then the port's ``call_variants`` on the
 device that ``SIBELIA_TPU_TORCH_DEVICE`` selects, and writes the VCF (and
-the MAF, the unmapped insertions) with the JAX package's writers.
+the MAF, the unmapped insertions).
 
 Refused with exit code 1, as not yet ported: ``SIBELIA_TPU_DEVICE_ORDER``
 other than 0 and ``SIBELIA_TPU_ANCHORS_DEVICE=1``, which select the JAX
-device modules ``kernels/order_device.py`` and ``align/anchors_device.py``,
-and whatever the port's Sibelia CLI refuses.
+package's device modules ``kernels/order_device.py`` and
+``align/anchors_device.py``, and whatever the port's Sibelia CLI refuses.
 
 ``SIBELIA_TPU_TIMINGS=<path>`` dumps the phase seconds with the launch
 counts, ``gotoh_flushes`` (gap batches the fast aligner closed) and
@@ -25,13 +25,10 @@ import shutil
 import sys
 import tempfile
 
-from sibelia_tpu.cli.sibelia import build_arg_parser
-from sibelia_tpu.core import timings
-from sibelia_tpu.variants import caller as host
-
+from ..core import timings
 from ..core.platform import GOTOH_FLUSHES, resolve_device
-from ..variants.caller import call_variants
-from .sibelia import _refuse_unported, write_timings
+from ..variants import caller
+from .sibelia import _refuse_unported, build_arg_parser, write_timings
 from .sibelia import run as sibelia_run
 
 
@@ -101,10 +98,10 @@ def run(argv: list[str]) -> int:
         if rc != 0:
             raise RuntimeError("synteny stage failed")
 
-        genomes = (host.parse_fasta_file(args.reference)
-                   + host.parse_fasta_file(args.assembly))
-        reference = host.parse_fasta_file(args.reference)
-        assembly = host.parse_fasta_file(args.assembly)
+        genomes = (caller.parse_fasta_file(args.reference)
+                   + caller.parse_fasta_file(args.assembly))
+        reference = caller.parse_fasta_file(args.reference)
+        assembly = caller.parse_fasta_file(args.assembly)
         reference_seq = {r.id: r.seq for r in reference}
         assembly_seq = {r.id: r.seq for r in assembly}
         reference_organism = reference[0]
@@ -116,23 +113,23 @@ def run(argv: list[str]) -> int:
 
         print("Calling variants...", file=sys.stderr)
         with timings.phase("variant_calling"):
-            variant_list, insertion_list, alignment_list = call_variants(
+            variant_list, insertion_list, alignment_list = caller.call_variants(
                 temp_dir, genomes, reference_seq, assembly_seq,
                 args.minblocksize, device, align=args.maf is not None,
                 processes=args.processcount)
-        variant_list.sort(key=host.variant_key)
+        variant_list.sort(key=caller.variant_key)
         vcf_file = (args.variant if args.outdir is None
                     else os.path.join(args.outdir, args.variant))
         with open(vcf_file, "w") as vcf_out:
-            host.write_vcf_header(reference_organism, vcf_out)
+            caller.write_vcf_header(reference_organism, vcf_out)
             if args.unmapped is not None:
                 ins_file = (args.unmapped if args.outdir is None
                             else os.path.join(args.outdir, args.unmapped))
-                host.write_insertions_fasta(insertion_list, ins_file)
+                caller.write_insertions_fasta(insertion_list, ins_file)
             else:
-                host.write_insertions_vcf(insertion_list, reference_organism,
+                caller.write_insertions_vcf(insertion_list, reference_organism,
                                           vcf_out)
-            host.write_variants_vcf(variant_list, vcf_out)
+            caller.write_variants_vcf(variant_list, vcf_out)
 
         if args.debug:
             conv = ("variant.txt" if args.outdir is None
@@ -147,7 +144,7 @@ def run(argv: list[str]) -> int:
             maf_file = (args.maf if args.outdir is None
                         else os.path.join(args.outdir, args.maf))
             with open(maf_file, "w") as h:
-                host.write_alignments_maf(alignment_list, h)
+                caller.write_alignments_maf(alignment_list, h)
         return 0
     finally:
         write_timings({"gotoh_flushes": len(GOTOH_FLUSHES),

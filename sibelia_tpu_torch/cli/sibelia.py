@@ -1,8 +1,9 @@
 """Sibelia command line interface of the PyTorch port.
 
-Same flags and outputs as ``sibelia_tpu/cli/sibelia.py`` (whose argument
-parser it reuses); the simplification stages run through the port's
-``BlockFinder`` on the device that ``SIBELIA_TPU_TORCH_DEVICE`` selects.
+Same flags and outputs as ``sibelia_tpu/cli/sibelia.py`` (full flag surface
+of the reference CLI, src/sibelia.cpp:43-368); the simplification stages run
+through the port's ``BlockFinder`` on the device that
+``SIBELIA_TPU_TORCH_DEVICE`` selects.
 
 Not yet ported, and refused with exit code 1 when asked for: the
 multi-host runtime (``SIBELIA_TPU_COORD``, ``SIBELIA_TPU_SHARDED``),
@@ -11,25 +12,55 @@ simplification engine (``SIBELIA_TPU_CHECK=1``, ``SIBELIA_TPU_NATIVE=0``).
 The native arena slab reservation is not made.
 
 ``SIBELIA_TPU_TIMINGS=<path>`` dumps the per-phase seconds of
-``sibelia_tpu.core.timings`` with the kernel launch counts.
+``core/timings.py`` with the kernel launch counts.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
 import tempfile
 
-from sibelia_tpu.blocks.postprocess import glue_stripes
-from sibelia_tpu.cli.sibelia import build_arg_parser
-from sibelia_tpu.core import timings
-from sibelia_tpu.core.config import MAX_INPUT_SIZE, PRESETS, read_stage_file
-from sibelia_tpu.core.progress import make_progress_bar
-from sibelia_tpu.io import writers
-from sibelia_tpu.io.fasta import read_fasta
-
+from .. import VERSION
+from ..blocks.boundaries import improve_block_boundaries
 from ..blocks.finder import BlockFinder
+from ..blocks.postprocess import glue_stripes
+from ..core import timings
+from ..core.config import MAX_INPUT_SIZE, PRESETS, read_stage_file
 from ..core.platform import LAUNCHES, SYNC_COUNTS, resolve_device
+from ..core.progress import make_progress_bar
+from ..io import writers
+from ..io.fasta import read_fasta
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="Sibelia",
+        description="Program for finding synteny blocks in closely related genomes")
+    p.add_argument("--version", action="version", version=VERSION)
+    p.add_argument("-i", "--maxiterations", type=int, default=4)
+    p.add_argument("--correctboundaries", action="store_true")
+    p.add_argument("--nopostprocess", action="store_true")
+    p.add_argument("--gff", action="store_true")
+    p.add_argument("--allstages", action="store_true")
+    p.add_argument("--lastk", type=int, default=None)
+    p.add_argument("-t", "--tempdir", default=".")
+    group = p.add_mutually_exclusive_group()
+    group.add_argument("-k", "--stagefile", default=None)
+    group.add_argument("-s", "--parameters", choices=sorted(PRESETS), default=None)
+    p.add_argument("-v", "--visualize", action="store_true")
+    p.add_argument("-g", "--graphfile", action="store_true")
+    p.add_argument("-q", "--sequencesfile", action="store_true")
+    p.add_argument("-m", "--minblocksize", type=int, default=5000)
+    p.add_argument("-a", "--sharedonly", action="store_true")
+    p.add_argument("-r", "--inram", action="store_true")
+    p.add_argument("--noblocks", action="store_true")
+    p.add_argument("--checkpoint", default=None,
+                   help="directory for per-stage checkpoints (not ported)")
+    p.add_argument("-o", "--outdir", default=".")
+    p.add_argument("filenames", nargs="+")
+    return p
 
 
 def _refuse_unported(args) -> None:
@@ -41,7 +72,8 @@ def _refuse_unported(args) -> None:
             asked.append(var)
     if os.environ.get("SIBELIA_TPU_SHARDED", "1") not in ("", "0", "1"):
         asked.append("SIBELIA_TPU_SHARDED")
-    # both select the JAX package's Python simplification engine
+    # both select the Python simplification engine (graph/simplify.py of
+    # the JAX package), which the port does not carry
     if os.environ.get("SIBELIA_TPU_CHECK") == "1":
         asked.append("SIBELIA_TPU_CHECK=1")
     if os.environ.get("SIBELIA_TPU_NATIVE") == "0":
@@ -161,8 +193,6 @@ def run(argv: list[str]) -> int:
             if not args.nopostprocess:
                 history[-1] = glue_stripes(history[-1], chr_list)
             if args.correctboundaries:
-                from sibelia_tpu.blocks.boundaries import \
-                    improve_block_boundaries
                 improve_block_boundaries(history[-1], reference_chr_id,
                                          args.minblocksize)
             with timings.phase("writers"):

@@ -5,10 +5,6 @@ card; ``SIBELIA_TPU_TORCH_DEVICE`` selects ``cuda`` (the default) or
 ``cpu``, where every kernel wrapper takes its plain PyTorch version.
 Asking for ``cuda`` without a card raises: the port never drops to the
 CPU on its own.
-
-Inside a port run the JAX package's own dispatch is pinned to its host
-paths (``SIBELIA_TPU_DEVICE=0``), so the shared host code it calls
-(k > 32 enumeration, block generation) never reaches a JAX device path.
 """
 from __future__ import annotations
 
@@ -35,7 +31,6 @@ def resolve_device() -> torch.device:
             "SIBELIA_TPU_TORCH_DEVICE=cuda but torch.cuda.is_available() is "
             "false; set SIBELIA_TPU_TORCH_DEVICE=cpu to run the plain "
             "PyTorch versions on the CPU")
-    os.environ["SIBELIA_TPU_DEVICE"] = "0"
     return torch.device(name)
 
 

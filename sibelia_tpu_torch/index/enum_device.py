@@ -16,10 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from sibelia_tpu.index.ranking import _pack_plan
-
 from ..core.convert import pack_sort_key, unpack_sort_key
 from ..kernels.enum_scan import enum_segment_scan
+from .ranking import _pack_plan
 from .ranking_device import kmer_ranks, next_separator, packed_keys
 
 # banded self-join width of the candidate prefilter, as in the JAX twin

@@ -1,38 +1,144 @@
-"""Bifurcation enumeration on the device (twin of the device branch of
-``sibelia_tpu/index/enumeration.py::enumerate_bifurcations``).
+"""Bifurcation enumeration: from chromosome strings to per-strand sorted
+bifurcation instance lists.
 
-Every k runs the fused device enumeration (``enum_device.py``): k <= 32
-by one sort of the packed keys, k > 32 by prefix doubling, as the JAX
-package's single-device ``enumerate_bifurcations_sharded`` does.  Only
-supergenomes of 2^30 rows or more go to the JAX package's host
-enumeration (native ``ranking.cpp``), which this port run pins to its
-host path.  Output is the JAX package's ``BifEnumeration``.
+``enumerate_bifurcations`` is the device path (twin of the device branch of
+``sibelia_tpu/index/enumeration.py::enumerate_bifurcations``): every k runs
+the fused device enumeration (``enum_device.py``), k <= 32 by one sort of the
+packed keys, k > 32 by prefix doubling, as the JAX package's single-device
+``enumerate_bifurcations_sharded`` does.  ``enumerate_bifurcations_host`` is
+the copy of that function's host branch: the native enumeration
+(``native/ranking.cpp``) from 2^16 supergenome rows on, numpy below.  It
+serves ``trim_blocks``'s per-block mini-indexes and supergenomes of 2^30
+rows or more, which exceed the scan kernel's int32 key space.
+
+Both reproduce the semantics of the reference's suffix-array scan
+(reference: src/vertexenumeration.cpp:160-364) without a suffix array:
+
+  * supergenome = '#' + chr_0 + '#' + ... + '#' + rc(chr_0) + '#' + ...
+  * group positions by identical k-mer
+  * a group is a bifurcation vertex iff its predecessor-char set or
+    successor-char set has >1 symbol or touches '#'
+    (reference: vertexenumeration.cpp:67-70)
+  * positions whose k-mer crosses a chromosome end are not candidates
+    (reference: vertexenumeration.cpp:341)
+  * a group is counted iff it has >=2 candidates, or any candidate is
+    terminal (adjacent to '#') (reference: vertexenumeration.cpp:348)
+  * ids are assigned densely in suffix-array order == lexicographic k-mer
+    order, which is exactly the rank order
+
+The reference's Flank() pass (vertexenumeration.cpp:72-88) is a no-op here:
+enumeration always runs after ambiguous bases have been randomized to ACGT
+(reference: src/indexedsequence.cpp:33-37), making IsDefiniteBase true
+everywhere.
 """
 from __future__ import annotations
 
 import warnings
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from sibelia_tpu.index import enumeration as host
-from sibelia_tpu.index.enumeration import (BifEnumeration,
-                                           _empty_enumeration, _map_selected,
-                                           build_supergenome)
-
+from ..core import timings
 from ..core.convert import to_numpy, to_tensor
 from ..core.platform import note_sync, resolve_device
 from .enum_device import candidate_scan, fused_enumeration
+from .ranking import CODE_OF, SEP_CODE, kmer_ranks_numpy
+
+NO_BIFURCATION = (1 << 32) - 1  # reference: BifurcationId(-1), uint32
+
+
+@dataclass
+class BifEnumeration:
+    count: int
+    # per strand: arrays sorted by (chr, pos); pos is strand-local
+    # (for the negative strand: offset within the reverse complement)
+    chr: tuple[np.ndarray, np.ndarray]
+    pos: tuple[np.ndarray, np.ndarray]
+    bif_id: tuple[np.ndarray, np.ndarray]
+    # optional uint8[count] bitmap: 1 = the id may have a bulge at stage
+    # start (device prefilter, superset of the serial AnyBulges outcome);
+    # None when not computed (the engine's re-prefilter computes it)
+    candidates: np.ndarray | None = None
+
+
+_ENC_LUT = np.zeros(256, dtype=np.uint8)
+for _ch, _code in CODE_OF.items():
+    _ENC_LUT[ord(_ch)] = _code
+    # lowercase maps like uppercase so both strand encodings derive from
+    # the same LUT composition: the RC strand complements lowercase acgt
+    # to uppercase bases via _COMP_LUT, and without these entries the
+    # forward strand would treat 'a' as a separator while the RC strand
+    # sees a real T code — a latent strand-symmetry break (production
+    # callers always pass sanitized uppercase, so this is hardening)
+    _ENC_LUT[ord(_ch.lower())] = _code
+_COMP_LUT = np.arange(256, dtype=np.uint8)
+for _a, _b in zip(b"ATGCatgc", b"TACGtacg"):
+    _COMP_LUT[_a] = _b
+
+
+def build_supergenome(chromosomes: list[bytes | np.ndarray]
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Return (codes, block_starts). Layout mirrors the reference
+    (vertexenumeration.cpp:166-183): leading '#', each chromosome followed
+    by '#', then each reverse complement followed by '#'. block_starts[b]
+    is the supergenome offset of block b (positive blocks then negative).
+    Accepts bytes or uint8 arrays; codes are written straight into one
+    output buffer (no intermediate join/copy of the genome)."""
+    arrs = [np.frombuffer(c, dtype=np.uint8)
+            if isinstance(c, (bytes, bytearray))
+            else np.asarray(c, dtype=np.uint8) for c in chromosomes]
+    total = 1 + 2 * sum(len(a) + 1 for a in arrs)
+    codes = np.zeros(total, dtype=np.uint8)  # untouched slots = separators
+    starts = []
+    off = 1
+    for a in arrs:
+        starts.append(off)
+        codes[off:off + len(a)] = _ENC_LUT[a]
+        off += len(a) + 1
+    for a in arrs:
+        starts.append(off)
+        codes[off:off + len(a)] = _ENC_LUT[_COMP_LUT[a]][::-1]
+        off += len(a) + 1
+    return codes, np.asarray(starts, dtype=np.int64)
+
+
+def _empty_enumeration() -> BifEnumeration:
+    e = np.zeros(0, dtype=np.int64)
+    ei = np.zeros(0, dtype=np.uint32)
+    return BifEnumeration(0, (e, e.copy()), (e.copy(), e.copy()), (ei, ei.copy()))
+
+
+def _map_selected(sel: np.ndarray, sel_ids: np.ndarray, count: int,
+                  block_starts: np.ndarray, n_chr: int) -> BifEnumeration:
+    """Map selected supergenome positions + dense ids to the per-strand
+    (chr, pos, id) instance lists sorted by (chr, pos)."""
+    sel_block = np.searchsorted(block_starts, sel, side="right") - 1
+    sel_block = np.clip(sel_block, 0, 2 * n_chr - 1)
+    sel_chr = np.where(sel_block < n_chr, sel_block, sel_block - n_chr)
+    sel_local = sel - block_starts[sel_block]
+    sel_neg = sel_block >= n_chr
+
+    out_chr, out_pos, out_id = [], [], []
+    for strand_neg in (False, True):
+        m = sel_neg == strand_neg
+        c, p, i = sel_chr[m], sel_local[m], sel_ids[m]
+        srt = np.lexsort((p, c))
+        out_chr.append(c[srt])
+        out_pos.append(p[srt])
+        out_id.append(i[srt])
+    return BifEnumeration(count, tuple(out_chr), tuple(out_pos), tuple(out_id))
 
 
 def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
                            min_branch: int | None = None,
                            device: torch.device | None = None
                            ) -> BifEnumeration:
-    """Enumerate bifurcations; with `min_branch` given and k <= 32, also
-    the bulge-candidate bitmap for the coming sweep (``candidates``).  For
-    k > 32 the JAX device path sets none either: the engine's stage-start
-    re-prefilter computes it."""
+    """Enumerate bifurcations on the device; with `min_branch` given and
+    k <= 32, also the bulge-candidate bitmap for the coming sweep
+    (``candidates``).  For k > 32 the JAX device path sets none either: the
+    engine's stage-start re-prefilter computes it.  chr and pos come back
+    as int64, as from the JAX package's device paths."""
     if not chromosomes:
         return _empty_enumeration()
     if device is None:
@@ -45,7 +151,7 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
             "supergenome exceeds the single-device enumeration's int32 "
             "scan space; falling back to the host enumeration",
             RuntimeWarning)
-        return host.enumerate_bifurcations(chromosomes, k)
+        return enumerate_bifurcations_host(chromosomes, k)
     codes_d = to_tensor(codes, device)
     note_sync("enum_upload")
     pos_d, id_d, n_sel_d, n_groups_d = fused_enumeration(codes_d, k)
@@ -65,3 +171,74 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
     res = _map_selected(sel, sel_ids, count, block_starts, len(chromosomes))
     res.candidates = cand
     return res
+
+
+def enumerate_bifurcations_host(chromosomes: list[bytes | np.ndarray],
+                                k: int) -> BifEnumeration:
+    """Enumerate bifurcations on the host: the whole ranking and group scan
+    in one native call from 2^16 supergenome rows on (chr and pos as
+    int32), the numpy formulation below (int64)."""
+    if not chromosomes:
+        return _empty_enumeration()
+    codes, block_starts = build_supergenome(chromosomes)
+    n = codes.shape[0]
+    n_chr = len(chromosomes)
+    if n >= (1 << 16):
+        from ..native import enumerate_native
+        with timings.phase("enum_native"):
+            count, strands = enumerate_native(codes, block_starts, n_chr, k)
+        return BifEnumeration(
+            count,
+            (strands[0][0], strands[1][0]),
+            (strands[0][1], strands[1][1]),
+            (strands[0][2], strands[1][2]))
+
+    # Candidate validity == the k-window crosses no separator; derived
+    # from the next-separator index in one reverse cummin pass (cheaper
+    # than per-position block lookups over the whole supergenome).
+    idx = np.arange(n, dtype=np.int64)
+    sep_idx = np.where(codes == SEP_CODE, idx, n)
+    next_sep = np.minimum.accumulate(sep_idx[::-1])[::-1]
+    valid = (codes != SEP_CODE) & (idx + k <= next_sep)
+
+    # Keep only candidate positions; groups are all-candidate or all-dropped
+    # (a '#'-free k-mer fits inside its chromosome; see module docstring).
+    rank, order = kmer_ranks_numpy(codes, k)
+    keep = order[valid[order]]
+    if keep.size == 0:
+        return _empty_enumeration()
+    kr = rank[keep]
+    group_start_mask = np.empty(keep.size, dtype=bool)
+    group_start_mask[0] = True
+    group_start_mask[1:] = kr[1:] != kr[:-1]
+    prev_codes = codes[keep - 1]
+    next_code = codes[np.minimum(keep + k, n - 1)]
+
+    starts_idx = np.flatnonzero(group_start_mask)
+    group_sizes = np.diff(np.append(starts_idx, keep.size))
+
+    prev_bits = (1 << prev_codes.astype(np.int64))
+    next_bits = (1 << next_code.astype(np.int64))
+    prev_or = np.bitwise_or.reduceat(prev_bits, starts_idx)
+    next_or = np.bitwise_or.reduceat(next_bits, starts_idx)
+
+    def is_bif(bits):
+        pop = np.zeros_like(bits)
+        for b in range(5):
+            pop += (bits >> b) & 1
+        return (pop > 1) | ((bits & 1) != 0)
+
+    bif_group = is_bif(prev_or) | is_bif(next_or)
+
+    terminal = (prev_codes == SEP_CODE) | (next_code == SEP_CODE)
+    any_terminal = np.bitwise_or.reduceat(terminal.astype(np.int64), starts_idx) != 0
+    counted = bif_group & ((group_sizes > 1) | any_terminal)
+
+    ids_per_group = np.cumsum(counted.astype(np.int64)) - 1
+    count = int(counted.sum())
+
+    group_of_keep = np.cumsum(group_start_mask.astype(np.int64)) - 1
+    pos_counted = counted[group_of_keep]
+    sel = keep[pos_counted]
+    sel_ids = ids_per_group[group_of_keep[pos_counted]].astype(np.uint32)
+    return _map_selected(sel, sel_ids, count, block_starts, n_chr)

@@ -15,9 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from sibelia_tpu.index.ranking import SEP_CODE, _SENT32, _pack_plan
-
 from ..core.convert import pack_sort_key
+from .ranking import _SENT32, SEP_CODE, _pack_plan
 
 _PAD = 40  # >= the widest overlap offset the pair reads past n
 

@@ -3,10 +3,14 @@
 Replaces the three Pallas TPU kernels of ``sibelia_tpu/kernels/enum_scan.py``
 (``_fwd_kernel``, ``_bwd_kernel``, ``_fin_kernel``, reached through the one
 ``pl.pallas_call`` in ``_grid_call``) with one hand-written CUDA C++ scan
-for Hopper, ``csrc/enum_scan.cu``: five launches, reduce-then-scan over
-blocks of 2048 rows, because blocks run in parallel where the TPU grid ran
-in order.  It is memory-bound on the card: it reads four i32 columns and
-writes two, about 38 bytes a row in all.
+for Hopper, ``csrc/enum_scan.cu``: three launches, reduce-then-scan over
+tiles of ``TILE_ROWS`` rows, because blocks run in parallel where the TPU
+grid ran in order.  It is memory-bound on the card: one read of the four
+i32 columns and one write of the two is 24 bytes a row, and the kernel
+moves 24.5 (the key columns are read once; two bits a row, packed, carry
+the verdicts from the first pass to the last).  Columns whose base
+pointers are not all 16-byte aligned (a slice at an odd offset) take
+4-byte loads and stores in place of 16-byte ones.
 
 ``enum_segment_scan`` takes a CUDA tensor to the kernel and a CPU tensor
 to ``enum_segment_scan_plain``, the XLA algebra of
@@ -23,6 +27,8 @@ import torch
 
 from ..core.platform import note_launch
 from . import nvcc
+
+TILE_ROWS = 4096  # rows of one block of the kernel (TILE in csrc/enum_scan.cu)
 
 
 def build() -> ctypes.CDLL:

@@ -22,10 +22,9 @@ import ctypes
 import numpy as np
 import torch
 
-from sibelia_tpu.core import timings
-from sibelia_tpu.variants.aligner import _SM, GAP_EXTEND, GAP_OPEN
-
+from ..core import timings
 from ..core.platform import note_launch
+from ..variants.scoring import _SM, GAP_EXTEND, GAP_OPEN
 from . import nvcc
 
 NEG = -(1 << 28)  # sibelia_tpu/kernels/gotoh.py:30

@@ -1,0 +1,294 @@
+"""Native (C++) host engines of the port, built from the sources beside
+this file.
+
+Copies of the loaders and ctypes wrappers of ``sibelia_tpu/native/__init__.py``
+over the port's own copies of the sources: the simplification engine
+(``engine.cpp``), the k-mer ranking and host enumeration (``ranking.cpp``)
+and the LAGAN stage primitives (``lagan_*.cpp``).  Each library is built with
+g++ at first use into ``native/build/`` (rebuilt when a source is newer) with
+the JAX package's compile flags, and loaded with ctypes.  A build or load
+that fails raises: there is no Python engine to take its place, and the
+port never loads a library built elsewhere.  The engine runs through
+``engine_runner.simplify``, which installs the port's device re-prefilter.
+The arena slab reservation (``rank_slab_reserve``) is not made.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_DIR, "build")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+# native progress hook (PutProgressChr twin; engine.cpp ProgressFn)
+PROGRESS_CFUNC = ctypes.CFUNCTYPE(None, ctypes.c_longlong, ctypes.c_int)
+REPREFILTER_CFUNC = ctypes.CFUNCTYPE(ctypes.c_longlong,
+                                     ctypes.POINTER(ctypes.c_uint8),
+                                     ctypes.c_longlong)
+
+
+def _build(name: str, flags: list[str], sources: list[str],
+           headers: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile BUILD_DIR/<name> from `sources` (file names beside this
+    module) when it is missing or older than a source or header, and load
+    it.  Raises RuntimeError when g++ fails or the library does not load."""
+    so = os.path.join(BUILD_DIR, name)
+    srcs = [os.path.join(_DIR, f) for f in sources]
+    newest = max(os.path.getmtime(os.path.join(_DIR, f))
+                 for f in (*sources, *headers))
+    if not os.path.exists(so) or os.path.getmtime(so) < newest:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["g++", *flags, "-o", tmp, *srcs], check=True,
+                           capture_output=True, text=True)
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f"g++ failed on {srcs}:\n{e.stderr}") from e
+        except OSError as e:
+            raise RuntimeError(f"cannot run g++ to build {so}: {e}") from e
+        os.replace(tmp, so)
+    try:
+        return ctypes.CDLL(so)
+    except OSError as e:
+        raise RuntimeError(f"cannot load {so}: {e}") from e
+
+
+def load() -> ctypes.CDLL:
+    """The simplification engine library (engine.cpp)."""
+    lib = _LIBS.get("engine")
+    if lib is not None:
+        return lib
+    lib = _build("libsibelia_engine.so",
+                 ["-O3", "-march=native", "-ffp-contract=off", "-shared",
+                  "-fPIC"], ["engine.cpp"])
+    lib.engine_create.restype = ctypes.c_void_p
+    lib.engine_create.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.engine_set_bifs.restype = None
+    lib.engine_set_bifs.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.engine_simplify_sparse.restype = ctypes.c_int64
+    lib.engine_simplify_sparse.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64]
+    lib.engine_set_progress.restype = None
+    lib.engine_set_progress.argtypes = [ctypes.c_void_p, PROGRESS_CFUNC]
+    lib.engine_chr_len.restype = ctypes.c_int64
+    lib.engine_chr_len.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.engine_get_chr.restype = None
+    lib.engine_get_chr.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.engine_destroy.restype = None
+    lib.engine_destroy.argtypes = [ctypes.c_void_p]
+    lib.radix_argsort_u64.restype = None
+    lib.radix_argsort_u64.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_void_p]
+    lib.engine_set_reprefilter.restype = None
+    lib.engine_set_reprefilter.argtypes = [ctypes.c_void_p,
+                                           REPREFILTER_CFUNC]
+    lib.engine_live_node_count.restype = ctypes.c_int64
+    lib.engine_live_node_count.argtypes = [ctypes.c_void_p]
+    lib.engine_export_nodes.restype = None
+    lib.engine_export_nodes.argtypes = [ctypes.c_void_p] * 5
+    lib.engine_export_chars.restype = None
+    lib.engine_export_chars.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
+    _LIBS["engine"] = lib
+    return lib
+
+
+def radix_argsort(keys: np.ndarray) -> np.ndarray:
+    """Stable argsort of a uint64 key array via the native radix sort."""
+    lib = load()
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    out = np.empty(len(keys), dtype=np.int64)
+    lib.radix_argsort_u64(keys.ctypes.data, len(keys), out.ctypes.data)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LAGAN-semantics engine (chaos / anchors / order stage primitives)
+# ---------------------------------------------------------------------------
+
+def load_lagan() -> ctypes.CDLL:
+    """Build (if stale) and load the native LAGAN-stage library."""
+    lib = _LIBS.get("lagan")
+    if lib is not None:
+        return lib
+    lib = _build("liblagan_engine.so",
+                 ["-O2", "-std=c++17", "-shared", "-fPIC"],
+                 ["lagan_api.cpp", "lagan_chaos.cpp", "lagan_anchors.cpp",
+                  "lagan_order.cpp", "lagan_multial.cpp"],
+                 ("lagan_common.h", "lagan_stages.h"))
+    lib.le_chaos.restype = ctypes.c_void_p
+    lib.le_chaos.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+        ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int]
+    lib.le_anchors.restype = ctypes.c_void_p
+    lib.le_anchors.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.le_order.restype = ctypes.c_void_p
+    lib.le_order.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+        ctypes.c_char_p]
+    lib.le_free.restype = None
+    lib.le_free.argtypes = [ctypes.c_void_p]
+    lib.ml_create.restype = ctypes.c_void_p
+    lib.ml_create.argtypes = [ctypes.c_int]
+    lib.ml_set_seq.restype = None
+    lib.ml_set_seq.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_char_p, ctypes.c_long,
+                               ctypes.c_char_p]
+    lib.ml_add_anchor.restype = None
+    lib.ml_add_anchor.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_float]
+    lib.ml_run.restype = ctypes.c_void_p
+    lib.ml_run.argtypes = [ctypes.c_void_p]
+    lib.ml_destroy.restype = None
+    lib.ml_destroy.argtypes = [ctypes.c_void_p]
+    _LIBS["lagan"] = lib
+    return lib
+
+
+def _take_string(lib, ptr) -> str:
+    try:
+        return ctypes.string_at(ptr).decode("latin-1")
+    finally:
+        lib.le_free(ptr)
+
+
+def lagan_chaos(seq1: bytes, name1: str, seq2: bytes, name2: str,
+                pairs_text: str, wl: int, nd: int, co: int, rsc: int,
+                gfc: bool = True, ext: bool = True) -> str:
+    lib = load_lagan()
+    ptr = lib.le_chaos(seq1, len(seq1), name1.encode("latin-1"),
+                       seq2, len(seq2), name2.encode("latin-1"),
+                       pairs_text.encode("latin-1"),
+                       wl, nd, co, rsc, int(gfc), int(ext))
+    return _take_string(lib, ptr)
+
+
+def lagan_anchors(hits_text: str, gfc: bool = True) -> str:
+    lib = load_lagan()
+    ptr = lib.le_anchors(hits_text.encode("latin-1"), int(gfc))
+    return _take_string(lib, ptr)
+
+
+def lagan_order(seq1: bytes, name1: str, seq2: bytes, name2: str,
+                anchors_text: str) -> str:
+    lib = load_lagan()
+    ptr = lib.le_order(seq1, len(seq1), name1.encode("latin-1"),
+                       seq2, len(seq2), name2.encode("latin-1"),
+                       anchors_text.encode("latin-1"))
+    return _take_string(lib, ptr)
+
+
+def mlagan_native(seqs, names, pair_anchor_lines) -> str:
+    """Run the native mlagan port. pair_anchor_lines[(i, j)] is the anchor
+    text lines for pair (i, j) in file order (descending seq1 end)."""
+    lib = load_lagan()
+    h = lib.ml_create(len(seqs))
+    try:
+        for i, (s, nm) in enumerate(zip(seqs, names)):
+            lib.ml_set_seq(h, i, s, len(s), nm.encode("latin-1"))
+        for (i, j), lines in pair_anchor_lines.items():
+            for (s1s, s1e, s2s, s2e, score) in lines:
+                lib.ml_add_anchor(h, i, j, s1s, s1e, s2s, s2e, score)
+        ptr = lib.ml_run(h)
+        return _take_string(lib, ptr)
+    finally:
+        lib.ml_destroy(h)
+
+
+# ---------------------------------------------------------------------------
+# Native k-mer ranking kernel and host enumeration
+# ---------------------------------------------------------------------------
+
+def load_ranking() -> ctypes.CDLL:
+    """The ranking and host enumeration library (ranking.cpp)."""
+    lib = _LIBS.get("ranking")
+    if lib is not None:
+        return lib
+    lib = _build("libsibelia_ranking.so",
+                 ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+                  "-pthread"], ["ranking.cpp"])
+    lib.kmer_ranks_native.restype = None
+    lib.kmer_ranks_native.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.enum_run.restype = ctypes.c_void_p
+    lib.enum_run.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    lib.enum_count.restype = ctypes.c_int64
+    lib.enum_count.argtypes = [ctypes.c_void_p]
+    lib.enum_strand_size.restype = ctypes.c_int64
+    lib.enum_strand_size.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.enum_destroy.restype = None
+    lib.enum_destroy.argtypes = [ctypes.c_void_p]
+    lib.enum_fetch32.restype = None
+    lib.enum_fetch32.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    _LIBS["ranking"] = lib
+    return lib
+
+
+def kmer_ranks_native(codes: np.ndarray, k: int):
+    """Native (rank, order) twin of index.ranking.kmer_ranks_numpy.
+
+    Contract: identical GROUPING of valid windows (equal rank <=>
+    identical k-window) and identical valid-filtered sorted order.  Rank
+    VALUES and the placement of invalid (separator-crossing) positions
+    may differ from the numpy twin in groups that mix valid and invalid
+    members (the k>32 LCP refinement leaves invalid members at the
+    group's base rank; see native/ranking.cpp)."""
+    lib = load_ranking()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = len(codes)
+    rank = np.empty(n, dtype=np.int64)
+    order = np.empty(n, dtype=np.int64)
+    lib.kmer_ranks_native(codes.ctypes.data, n, int(k),
+                          rank.ctypes.data, order.ctypes.data)
+    return rank, order
+
+
+def enumerate_native(codes: np.ndarray, block_starts: np.ndarray,
+                     n_chr: int, k: int):
+    """Native twin of index.enumeration.enumerate_bifurcations_host's scan
+    over a prebuilt supergenome; returns (count, [(chr, pos, id)] * 2),
+    chr and pos as int32 and id as uint32 (lossless under the 1 GB input
+    cap)."""
+    lib = load_ranking()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    block_starts = np.ascontiguousarray(block_starts, dtype=np.int64)
+    h = lib.enum_run(codes.ctypes.data, len(codes), block_starts.ctypes.data,
+                     len(block_starts), int(n_chr), int(k))
+    try:
+        count = lib.enum_count(h)
+        strands = []
+        for s in (0, 1):
+            m = lib.enum_strand_size(h, s)
+            chrs = np.empty(m, dtype=np.int32)
+            poss = np.empty(m, dtype=np.int32)
+            ids = np.empty(m, dtype=np.uint32)
+            lib.enum_fetch32(h, s, chrs.ctypes.data, poss.ctypes.data,
+                             ids.ctypes.data)
+            strands.append((chrs, poss, ids))
+        return int(count), strands
+    finally:
+        lib.enum_destroy(h)

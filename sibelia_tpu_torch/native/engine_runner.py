@@ -1,4 +1,4 @@
-"""Runs the JAX package's native C++ simplification engine with the port's
+"""Runs the native C++ simplification engine (``engine.cpp``) with the port's
 device re-prefilter installed (twin of
 ``sibelia_tpu/native/__init__.py::simplify_native`` and
 ``_device_reprefilter``).
@@ -17,14 +17,12 @@ import ctypes
 import numpy as np
 import torch
 
-from sibelia_tpu.core import timings
-from sibelia_tpu.index.enumeration import build_supergenome
-from sibelia_tpu.native import (PROGRESS_CFUNC, REPREFILTER_CFUNC,
-                                _configure_reprefilter_api, load)
-
+from ..core import timings
 from ..core.convert import to_numpy, to_tensor
 from ..core.platform import note_sync
 from ..index.enum_device import candidate_scan
+from ..index.enumeration import build_supergenome
+from . import PROGRESS_CFUNC, REPREFILTER_CFUNC, load
 
 
 def device_reprefilter(lib, handle, n_chr: int, k: int, min_branch: int,
@@ -76,10 +74,6 @@ def simplify(seq, enum, k: int, min_branch: int, max_iterations: int,
     BifEnumeration; `candidates` the uint8[count] bitmap of the stage-start
     prefilter, if computed.  Returns the bulge count."""
     lib = load()
-    if lib is None:
-        raise RuntimeError("the native simplification engine is unavailable "
-                           "(g++ build failed or SIBELIA_TPU_NATIVE=0)")
-    _configure_reprefilter_api(lib)
     n_chr = seq.n_chr
     chr_lens = (ctypes.c_int64 * n_chr)(*[seq.chr_len(c) for c in range(n_chr)])
     char_bufs = [np.ascontiguousarray(seq.chars[c]) for c in range(n_chr)]

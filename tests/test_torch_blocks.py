@@ -8,9 +8,9 @@ import pytest
 import torch
 
 from sibelia_tpu.blocks.finder import BlockFinder as HostBlockFinder
-from sibelia_tpu.core import timings
 from sibelia_tpu.io.fasta import FASTARecord, read_fasta
 from sibelia_tpu_torch.blocks.finder import BlockFinder
+from sibelia_tpu_torch.core import timings
 from tests.test_device_e2e import _write_fixture
 
 

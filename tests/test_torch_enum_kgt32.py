@@ -128,7 +128,7 @@ def test_kgt32_never_reaches_the_host_enumeration(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("k > 32 reached the host enumeration")
 
-    monkeypatch.setattr(port_enum.host, "enumerate_bifurcations", refuse)
+    monkeypatch.setattr(port_enum, "enumerate_bifurcations_host", refuse)
     # no size threshold: tiny and mid-sized supergenomes alike
     for chroms in (_all_t()[:1], [c[:500] for c in _strains()], _strains()):
         for k in (33, 100):

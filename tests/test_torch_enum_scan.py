@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import off_boundary, scan_edge_cases
 from sibelia_tpu_torch.core.convert import u32_to_i32
 from sibelia_tpu_torch.core.platform import LAUNCHES
-from sibelia_tpu_torch.kernels.enum_scan import (enum_segment_scan,
+from sibelia_tpu_torch.kernels.enum_scan import (TILE_ROWS, enum_segment_scan,
                                                  enum_segment_scan_plain)
 
 TILE = 256 * 128  # rows per grid step of the Pallas kernels
@@ -93,6 +94,41 @@ def test_plain_matches_xla_any_n(n, max_len):
         _assert_same(got, want)
 
 
+SMALL_TILE = 64  # the edge cases at a small n, laid around this tile
+EDGE_NAMES = [name for name, _, _ in scan_edge_cases(SMALL_TILE)]
+
+
+@pytest.mark.parametrize("index", range(len(EDGE_NAMES)), ids=EDGE_NAMES)
+def test_edge_cases_match_xla_and_pallas_interpret(index):
+    """The cases the CUDA kernel is held to on the card (chip_smoke.py
+    phase 2, there at the kernel's own tile), through the plain version:
+    against the XLA formulation as they are, and against the Pallas
+    kernels in interpret mode on the same columns padded to one Pallas
+    tile with single-row segments."""
+    import jax.numpy as jnp
+
+    from sibelia_tpu.kernels.enum_scan import \
+        enum_segment_scan as pallas_segment_scan
+    from tests.test_enum_scan import _xla_reference
+    _, cols, nvs = scan_edge_cases(SMALL_TILE)[index]
+    n = len(cols[0])
+    pad = np.arange(1, TILE - n + 1, dtype=np.int32)
+    padded = [np.concatenate([cols[0], cols[0][-1] + pad]),
+              np.concatenate([cols[1], cols[1][-1] + pad]),
+              np.concatenate([cols[2], np.full(TILE - n, 9, np.int32)]),
+              np.concatenate([cols[3], n + pad - 1])]
+    for nv in nvs:
+        want = _xla_reference(*(jnp.asarray(c) for c in cols), jnp.int32(nv),
+                              n)
+        got = enum_segment_scan(*(torch.from_numpy(c) for c in cols), nv, n)
+        _assert_same(got, want)
+        want = pallas_segment_scan(*(jnp.asarray(c) for c in padded), True,
+                                   jnp.asarray(np.int32(nv)), TILE)
+        got = enum_segment_scan(*(torch.from_numpy(c) for c in padded), nv,
+                                TILE)
+        _assert_same(got, want)
+
+
 def test_cpu_tensors_take_the_plain_version():
     _, k1, k2, aux, order = _inputs(5, 300, 7)
     before = dict(LAUNCHES)
@@ -113,3 +149,18 @@ def test_cuda_kernel_matches_plain(n, max_len):
         want = enum_segment_scan_plain(*cols, nv, n)
         torch.cuda.synchronize()
         _assert_same(got, tuple(x.cpu() for x in want))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_on_the_edge_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for name, cols, nvs in scan_edge_cases(TILE_ROWS):
+        cols = [torch.from_numpy(c).cuda() for c in cols]
+        n = cols[0].shape[0]
+        for cs in (cols, [off_boundary(c) for c in cols]):
+            for nv in nvs:
+                got = enum_segment_scan(*cs, nv, n)
+                want = enum_segment_scan_plain(*cs, nv, n)
+                torch.cuda.synchronize()
+                _assert_same(got, tuple(x.cpu() for x in want))

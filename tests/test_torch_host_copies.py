@@ -1,0 +1,331 @@
+"""The port's own copies of the host modules against the originals.
+
+``sibelia_tpu_torch`` imports nothing of ``sibelia_tpu``: it carries its
+own copy of every host module and native source it runs.  Each case feeds
+the same seeded numpy input to a copy and to its original and asks for
+equal output; the native cases hold the port's libraries (built from
+``sibelia_tpu_torch/native/*.cpp`` into ``sibelia_tpu_torch/native/build/``)
+to the JAX package's.  Exact equality throughout."""
+import dataclasses
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import sibelia_tpu as J
+import sibelia_tpu.align.lagan_exact
+import sibelia_tpu.align.mlagan_exact
+import sibelia_tpu.align.seqan_local
+import sibelia_tpu.blocks.boundaries
+import sibelia_tpu.blocks.edges
+import sibelia_tpu.blocks.postprocess
+import sibelia_tpu.core.boost_unordered
+import sibelia_tpu.core.config
+import sibelia_tpu.core.glibc_rand
+import sibelia_tpu.core.progress
+import sibelia_tpu.core.py2_dict
+import sibelia_tpu.core.stdsort
+import sibelia_tpu.core.timings
+import sibelia_tpu.graph.indexed
+import sibelia_tpu.io.writers
+import sibelia_tpu.native
+import sibelia_tpu.variants.aligner
+import sibelia_tpu.variants.caller
+import sibelia_tpu_torch as P
+import sibelia_tpu_torch.align.lagan_exact
+import sibelia_tpu_torch.align.mlagan_exact
+import sibelia_tpu_torch.align.seqan_local
+import sibelia_tpu_torch.blocks.boundaries
+import sibelia_tpu_torch.blocks.edges
+import sibelia_tpu_torch.blocks.postprocess
+import sibelia_tpu_torch.core.boost_unordered
+import sibelia_tpu_torch.core.config
+import sibelia_tpu_torch.core.glibc_rand
+import sibelia_tpu_torch.core.progress
+import sibelia_tpu_torch.core.py2_dict
+import sibelia_tpu_torch.core.stdsort
+import sibelia_tpu_torch.core.timings
+import sibelia_tpu_torch.graph.indexed
+import sibelia_tpu_torch.io.writers
+import sibelia_tpu_torch.native.engine_runner
+import sibelia_tpu_torch.variants.aligner
+import sibelia_tpu_torch.variants.caller
+
+SEED = 4
+
+
+def _dna(rng, n):
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+
+
+def _strains(rng, size=6000, n_strains=3, n_mut=40):
+    base = _dna(rng, size)
+    out = [base]
+    for _ in range(n_strains - 1):
+        s = base.copy()
+        hit = rng.integers(0, size, n_mut)
+        s[hit] = _dna(rng, n_mut)
+        at = int(rng.integers(size // 4, size // 2))
+        out.append(np.concatenate([s[:at], _dna(rng, 9), s[at:]]))
+    return out
+
+
+def glibc_rand(pkg, rng, tmp_path):
+    r = pkg.core.glibc_rand.GlibcRand(int(rng.integers(1, 1 << 30)))
+    return [r.rand() for _ in range(2000)]
+
+
+def stdsort(pkg, rng, tmp_path):
+    # many ties under the comparison: introsort's order of equals shows
+    items = [(int(a), i) for i, a in enumerate(rng.integers(0, 40, 700))]
+    less = lambda a, b: a[0] < b[0]
+    groups = pkg.core.stdsort.group_by(items, less)
+    return items, groups
+
+
+def boost_unordered(pkg, rng, tmp_path):
+    m = pkg.core.boost_unordered.Boost154Map()
+    fresh = [m.insert(int(key), i)
+             for i, key in enumerate(rng.integers(0, 5000, 3000))]
+    return fresh, list(m.items()), m.find(int(rng.integers(0, 5000)))
+
+
+def py2_dict(pkg, rng, tmp_path):
+    keys = ["".join(chr(c) for c in rng.integers(97, 123, rng.integers(1, 12)))
+            for _ in range(500)]
+    return (pkg.core.py2_dict.py2_dict_key_order(keys),
+            [pkg.core.py2_dict.py2_str_hash(k) for k in keys[:50]])
+
+
+def config(pkg, rng, tmp_path):
+    path = tmp_path / "stages.txt"
+    path.write_text("3\n10 60\n20 200\n100 1000\n")
+    cfg = pkg.core.config
+    return (cfg.PRESETS, cfg.MAX_INPUT_SIZE, cfg.read_stage_file(str(path)))
+
+
+def progress(pkg, rng, tmp_path):
+    out = io.StringIO()
+    bar = pkg.core.progress.make_progress_bar(out)
+    for state, steps in ((0, [0]), (1, [3, 10, 10, 37, 50]), (2, [50])):
+        for step in steps:
+            bar(step, state)
+    return out.getvalue()
+
+
+def timings(pkg, rng, tmp_path):
+    t = pkg.core.timings
+    t.reset()
+    t.add("a", 1.5)
+    t.add("a", 0.25)
+    t.add("b", 2.0)
+    snap = t.snapshot()
+    t.reset()
+    return snap, t.snapshot()
+
+
+def fasta(pkg, rng, tmp_path):
+    fa = pkg.io.fasta
+    path = str(tmp_path / "round.fasta")
+    seqs = [bytes(_dna(rng, n)).decode() for n in (150, 81, 1)]
+    seqs[0] = seqs[0][:70] + "nNryk" + seqs[0][70:].lower()
+    with open(path, "w") as h:
+        for i, s in enumerate(seqs):
+            h.write(f">gi|{i}|ref|X{i}.1| strain {i}\n")
+            h.write("\n".join(s[j:j + 60] for j in range(0, len(s), 60)) + "\n")
+    records = fa.read_fasta(path)
+    again = str(tmp_path / "again.fasta")
+    fa.write_fasta(again, records[0].description, records[0].sequence)
+    with open(again) as h:
+        written = h.read()
+    return ([(r.id, r.description, r.sequence, r.conventional_id,
+              r.striped_id()) for r in records], written,
+            fa.reverse_complement(seqs[0]))
+
+
+def _index(pkg, chroms, k):
+    """(seq, store) at k, through the package's host enumeration."""
+    seq = pkg.graph.sequence.MutableSequence([c.copy() for c in chroms])
+    if pkg is P:
+        enum = P.index.enumeration.enumerate_bifurcations_host(seq.chars, k)
+    else:
+        enum = J.index.enumeration.enumerate_bifurcations(seq.chars, k)
+    return seq, pkg.graph.indexed.store_from_enum(seq, enum), enum
+
+
+def bifstore(pkg, rng, tmp_path):
+    seq, store, enum = _index(pkg, _strains(rng), 12)
+    at = [[a.tolist() for a in strand] for strand in store.bif_at]
+    positions = [store.list_positions(b) for b in range(enum.count)]
+    counts = [store.count_bifurcations(b) for b in range(enum.count)]
+    store.apply_splice(0, 100, 140, 7)
+    seq.splice(0, 100, 140, _dna(np.random.default_rng(1), 7))
+    store.cleanup()
+    after = [[a.tolist() for a in strand] for strand in store.bif_at]
+    return (enum.count, at, positions, counts, after, store.n_nodes,
+            seq.to_strings(), seq.spell(1, 0, 5, 30),
+            [seq.origpos_at(0, p) for p in (0, 99, 100, 120)])
+
+
+def list_edges(pkg, rng, tmp_path):
+    seq, store, _ = _index(pkg, _strains(rng), 12)
+    edges = pkg.blocks.edges.list_edges(seq, store, 12)
+    return [dataclasses.astuple(e) for e in edges]
+
+
+def native_engine_sweep(pkg, rng, tmp_path):
+    """One simplification stage in each package's own engine library (the
+    port's with its re-prefilter on the CPU, the JAX package's with its host
+    prefilter): bulge count and the simplified chromosomes."""
+    chroms = _strains(rng, size=20000, n_mut=150)
+    seq, _, enum = _index(pkg, chroms, 11)
+    if pkg is P:
+        bulges = P.native.engine_runner.simplify(seq, enum, 11, 80, 4,
+                                                 torch.device("cpu"))
+    else:
+        bulges = J.native.simplify_native(seq, enum, 11, 80, 4)
+    assert bulges is not None and bulges > 0
+    return bulges, seq.to_strings()
+
+
+def native_ranking_enumeration(pkg, rng, tmp_path):
+    """ranking.cpp's enumeration of one supergenome of more than 2^16 rows,
+    at a k that packs into one key and at one that does not."""
+    chroms = _strains(rng, size=12000, n_mut=100)
+    codes, starts = pkg.index.enumeration.build_supergenome(chroms)
+    assert codes.size >= 1 << 16
+    out = []
+    for k in (15, 100):
+        count, strands = pkg.native.enumerate_native(codes, starts,
+                                                     len(chroms), k)
+        assert count > 0
+        out.append((count, [[a.tolist() for a in s] for s in strands]))
+    rank, order = pkg.native.kmer_ranks_native(codes, 40)
+    return out, codes.tolist(), starts.tolist(), rank.tolist(), order.tolist()
+
+
+def _pair(rng, n=900):
+    a = _dna(rng, n)
+    b = a.copy()
+    hit = rng.integers(0, n, 25)
+    b[hit] = _dna(rng, 25)
+    b = np.concatenate([b[:300], _dna(rng, 14), b[300:600], b[640:]])
+    return a.tobytes(), b.tobytes()
+
+
+def lagan_exact(pkg, rng, tmp_path):
+    a, b = _pair(rng)
+    return pkg.align.lagan_exact.align_pair_exact(a, b)
+
+
+def mlagan_exact(pkg, rng, tmp_path):
+    a, b = _pair(rng, 600)
+    c = a[:200] + a[230:]
+    return pkg.align.mlagan_exact.align_multiple_exact(
+        [a, b, c], ["s1", "s2", "s3"])
+
+
+def seqan_local(pkg, rng, tmp_path):
+    a, b = _pair(rng, 160)
+    return pkg.align.seqan_local.seqan_local_alignment(a[20:140], b[:150])
+
+
+def _blocks(pkg, rng):
+    """Three chromosomes and a block list with neighbours to glue."""
+    records = [pkg.io.fasta.FASTARecord(
+        bytes(_dna(rng, 3000)).decode(), f"chr{i}", i) for i in range(3)]
+    blocks = []
+    for c, rec in enumerate(records):
+        for b, (lo, hi) in enumerate(((100, 400), (430, 800), (900, 1500),
+                                      (1600, 2100))):
+            sign = -1 if (c == 1 and b >= 2) else 1
+            blocks.append(pkg.blocks.instance.BlockInstance(
+                sign * (b + 1), rec, lo + 3 * c, hi + 3 * c))
+    return records, blocks
+
+
+def _plain(blocks):
+    return [(b.signed_id, b.chr.id, b.start, b.end) for b in blocks]
+
+
+def postprocess(pkg, rng, tmp_path):
+    records, blocks = _blocks(pkg, rng)
+    return _plain(pkg.blocks.postprocess.glue_stripes(blocks, records))
+
+
+def boundaries(pkg, rng, tmp_path):
+    records, blocks = _blocks(pkg, rng)
+    blocks = [b for b in blocks if b.chr.id < 2]
+    pkg.blocks.boundaries.improve_block_boundaries(blocks, {0}, 50)
+    return _plain(blocks)
+
+
+def writers(pkg, rng, tmp_path):
+    records, blocks = _blocks(pkg, rng)
+    w = pkg.io.writers
+    out = []
+    for fn in (w.list_blocks_indices, w.generate_report,
+               w.list_chromosomes_as_permutations, w.list_blocks_indices_gff,
+               w.list_blocks_sequences):
+        path = str(tmp_path / fn.__name__)
+        fn(blocks, records, path)
+        with open(path) as h:
+            out.append(h.read())
+    return out
+
+
+def aligner(pkg, rng, tmp_path):
+    """The host Gotoh, and the anchored aligner on a pair large enough to
+    anchor (fast mode, gaps closed on the host)."""
+    al = pkg.variants.aligner
+    a, b = _pair(rng, 1500)
+    return (al._gotoh(a[:90], b[:95]), al.align_pair(a, b),
+            al.align_multiple([a[:300], b[:310], a[5:280]]),
+            (al.GAP_OPEN, al.GAP_EXTEND, al.DEVICE_BATCH_T, al._MAX_DP_AREA))
+
+
+def caller(pkg, rng, tmp_path):
+    """Variants read off two aligned rows, on either strand, and their VCF
+    and MAF text."""
+    ca = pkg.variants.caller
+    a, b = _pair(rng, 500)
+    rows = pkg.variants.aligner.align_pair(a, b)
+    out = io.StringIO()
+    variants = []
+    for direction, start in ((1, 1000), (-1, 4000)):
+        variants += ca.parse_alignment(rows, "gi|1|ref|NC_1.1|", 7, "ctg1",
+                                       start, direction)
+    ca.write_variants_vcf(sorted(variants, key=ca.variant_key), out)
+    return [str(v) for v in variants], out.getvalue()
+
+
+CASES = [glibc_rand, stdsort, boost_unordered, py2_dict, config, progress,
+         timings, fasta, bifstore, list_edges, native_engine_sweep,
+         native_ranking_enumeration, lagan_exact, mlagan_exact, seqan_local,
+         postprocess, boundaries, writers, aligner, caller]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__)
+def test_copy_equals_original(case, tmp_path, monkeypatch):
+    # the JAX package on its host paths, whatever the caller's environment
+    monkeypatch.setenv("SIBELIA_TPU_DEVICE", "0")
+    monkeypatch.setenv("SIBELIA_TPU_TORCH_DEVICE", "cpu")
+    for pkg in (J, P):
+        (tmp_path / pkg.__name__).mkdir()
+    want = case(J, np.random.default_rng(SEED), tmp_path / J.__name__)
+    got = case(P, np.random.default_rng(SEED), tmp_path / P.__name__)
+    assert repr(got) == repr(want)
+
+
+def test_the_port_builds_its_own_native_libraries():
+    port_dir = os.path.join(os.path.dirname(P.__file__), "native")
+    for lib in (P.native.load(), P.native.load_ranking(),
+                P.native.load_lagan()):
+        assert os.path.dirname(lib._name) == os.path.join(port_dir, "build")
+    # every source the JAX package's three libraries are built from
+    for name in ("engine.cpp", "ranking.cpp", "lagan_api.cpp",
+                 "lagan_chaos.cpp", "lagan_anchors.cpp", "lagan_order.cpp",
+                 "lagan_multial.cpp", "lagan_common.h", "lagan_stages.h"):
+        assert os.path.getsize(os.path.join(port_dir, name)) > 0, name
