@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/lib<name>.so`` (gitignored), rebuilt when the source is
 newer.  ``build_all`` starts one nvcc per stale source, all at once, and
 waits for them together; ``load`` builds one library if needed and opens
-it with ctypes.  A failed build raises.
+it with ctypes.  A failed build raises.  Every build asks ptxas for each
+kernel's registers, shared memory and spills (``-Xptxas -v``); ``BUILD_LOG``
+keeps what the compiler said.
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC"]
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# name -> the compiler's output of the build this process made, if any
+BUILD_LOG: dict[str, str] = {}
 
 
 def source(name: str) -> str:
@@ -56,6 +60,7 @@ def build_all(names: list[str]) -> dict[str, float]:
     for name, (proc, tmp, t0) in started.items():
         _, err = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = err
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {source(name)}:\n{err}")
         else:
