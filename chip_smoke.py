@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # the smoke run below
-    python3 chip_smoke.py --kernels        # phases 1-3 only: build and check
+    python3 chip_smoke.py --kernels        # phases 1-3c only: build and check
     python3 chip_smoke.py --profile DIR    # step breakdown of phase 4 only
 
 It imports the port alone: the run fails if ``jax``, ``jaxlib`` or the JAX
@@ -12,9 +12,9 @@ package ``sibelia_tpu`` was imported by the end.  The port builds its CUDA
 kernels (nvcc) and its native C++ host libraries (g++) from its own sources.
 
 Phases, each of which fails the run:
-  1. build    torch/CUDA versions, the card's name and power limit, and both
-              kernels built from kernels/csrc/*.cu, one nvcc each, started
-              together;
+  1. build    torch/CUDA versions, the card's name and power limit, and the
+              four kernels built from kernels/csrc/*.cu, one nvcc each,
+              started together;
   2. kernel   the segment scan kernel against its plain PyTorch version on
               the card, bit-equal, at random segment lengths 1-300 for n in
               {1, 1000, 32768+7, 2^22+13}, one segment of 2^20 rows, a
@@ -43,12 +43,29 @@ Phases, each of which fails the run:
               CUDA graph, and enqueued by the host) and of the plain version
               (B = 4096, T = 128 is the reference), the kernel's bound from
               these pairs' lengths, and the bytes a pair that cross PCIe;
+  3b. order   the order stage's band DP kernel against its plain PyTorch
+              version, pointer bytes inside the band bit-equal, at wmax in
+              {16, 32, 64, 1024, 8192 (several lanes a thread)}, nd from 2
+              up, necks, '.' and N codes, and a ragged batch of all of them
+              in one call; the -mfa text of ``order_mfa_device_batch`` on
+              the card equal to native ``lagan_order`` on every pair and on
+              a 200 kbp pair, whose kernel time is printed (no plain run:
+              it costs a Python step a diagonal); kernel and plain times,
+              bounds and bytes of pointer rows of every case;
+  3c. anchors the anchors stage's sweep kernel against its plain PyTorch
+              version, sofar, bk, best and best_val bit-equal, at n in {1,
+              2, 60, 1000, one above the shared-memory limit}, tie-heavy
+              sets, a list of sets in one launch; ``anchors_text_device`` on
+              the card equal to native ``lagan_anchors`` on real chaos
+              hits; times of the kernel, the plain version and the native
+              sweep on the same set, and the bound;
   4. enum     enumeration at k = 30, min_branch = 150 of 16 synthetic
               strains x 2 Mbp (about 64 M supergenome rows): the port on the
               card against the port on the CPU (plain versions), every
               field and the candidate bitmap identical;
-  4b. enum_k  enumeration of the same input at k in {100, 1000, 5000}, the
-              loose preset's k > 32 values, by prefix doubling: the port on
+  4b. enum_k  enumeration of the same input at k in {100, 5000}, the first
+              and last of the loose preset's k > 32 values, by prefix
+              doubling: the port on
               the card against the port's host native enumeration
               (native/ranking.cpp, which the CPU tests hold to the JAX
               package's), every field identical;
@@ -63,15 +80,30 @@ Phases, each of which fails the run:
   6. csibelia ``sibelia_tpu_torch.cli.csibelia ref.fasta asm.fasta --maf``
               with the fast aligner and device gap batching
               (``SIBELIA_TPU_ALIGNER=fast SIBELIA_TPU_DEVICE_ALIGN=1``) and
-              the CLI's defaults (-s fine -m 500 -i 4) on a 2.8 Mbp
+              the CLI's defaults (-s fine -m 500 -i 4) on a 1.4 Mbp
               reference strain against a second strain of the same base cut
-              into contigs of 20-200 kbp, the size of C-Sibelia's S. aureus
-              example: on the card and on the CPU, variant.vcf and
+              into contigs of 20-200 kbp (half the size of C-Sibelia's S.
+              aureus example; phase 7 runs the whole size): on the card and
+              on the CPU, variant.vcf and
               alignment.maf byte-identical, both kernels launched on the
               card, the segment scan at least 7 times (three stages, their
               three block generations and the final one); the histogram of
               the run's gap lengths; then the Gotoh kernel against its plain
-              versions on the run's largest gap batch, rows and planes.
+              versions on the run's largest gap batch, rows and planes;
+  7. csibelia_exact  the same CLI on a 2.8 Mbp pair made the same way (the
+              size of C-Sibelia's S. aureus example) with NO aligner switch
+              set: the default, exact LAGAN mode, which on the card means
+              the anchors sweep and every band DP there.  On the card and
+              with ``SIBELIA_TPU_TORCH_DEVICE=cpu`` (the native stages):
+              variant.vcf and alignment.maf byte-identical, both new
+              kernels launched, ``order_device_jobs`` above 0; the run's
+              (nd, wmax) and hits-a-sweep histograms, the phase seconds of
+              both runs, the bytes of pointer rows; then both kernels
+              again on what the run gave them: the band DP on its largest
+              batch (timed) and, against the plain version, on that
+              batch's pairs of at most 6,000 diagonals; the sweep on the
+              run's largest hit set against the plain version, with the
+              native sweep's time beside it.
 
 ``--profile DIR`` runs phase 1, then times each step of the port's k = 30
 enumeration of the phase 4 input (a synchronise on each side of every
@@ -102,12 +134,22 @@ MAIN_K, MAIN_MIN_BRANCH = 30, 150
 # rate; the card's is lower, so a bound reckoned with this one still holds.
 HBM_BYTES_PER_S = 3.35e12
 PLAIN_OPS_PER_S = 67e12
-ENUM_KS = (100, 1000, 5000)  # the loose preset's k > 32 values
+ENUM_KS = (100, 5000)  # the first and last of the loose preset's k > 32
 BIG_K = ENUM_KS[-1]
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+_PHASE_MARK = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Prints the seconds since the last phase ended (or the import)."""
+    now = time.perf_counter()
+    log(f"  phase {name} took {now - _PHASE_MARK[0]:.1f} s")
+    _PHASE_MARK[0] = now
 
 
 def make_strains(n_strains: int, size: int, seed: int) -> list[np.ndarray]:
@@ -599,6 +641,287 @@ def phase_gotoh(device, gpu: str, reps: int = 5) -> dict:
             "bound_by": rows["bound_by"]}
 
 
+# -------------------------------------------------------------- phase 3b --
+
+ORDER_PLAIN_DIAGS = 6_000  # the plain version costs a Python step a diagonal
+
+
+def related_pair(rng, n: int, middle: int = 0) -> tuple[bytes, bytes]:
+    """Two sequences of about n bases, 1 % of them substituted, an indel of
+    1-30 bases about every 5,000; with `middle`, an unrelated stretch of
+    that length in the middle of both (a wide square between anchors)."""
+    a = ACGT[rng.integers(0, 4, n)]
+    b = a.copy()
+    hit = rng.integers(0, n, n // 100)
+    b[hit] = ACGT[rng.integers(0, 4, hit.size)]
+    for at in sorted(rng.integers(0, n, n // 5000).tolist(), reverse=True):
+        b = np.delete(b, slice(at, at + int(rng.integers(1, 31))))
+    if middle:
+        a = np.concatenate([a[:n // 2], ACGT[rng.integers(0, 4, middle)],
+                            a[n // 2:]])
+        b = np.concatenate([b[:n // 2], ACGT[rng.integers(0, 4, middle + 17)],
+                            b[n // 2:]])
+    return a.tobytes(), b.tobytes()
+
+
+def order_jobs(pairs) -> list[tuple]:
+    """(seq1, name1, seq2, name2, anchors) of each pair; anchors by the
+    native rechaos, none for a pair given with its own."""
+    from sibelia_tpu_torch.align.lagan_exact import rechaos
+    return [(p[0], "x", p[1], "y",
+             p[2] if len(p) > 2 else rechaos(p[0], "x", p[1], "y"))
+            for p in pairs]
+
+
+def pack_order_jobs(jobs, device):
+    """The jobs' bands on the card: ([codes, params, init], table)."""
+    import torch
+    from sibelia_tpu_torch.kernels import order_device
+    from sibelia_tpu_torch.native import load_lagan
+    lib = load_lagan()
+    prepared = [order_device._prepare_job(lib, j[0], j[2], j[4], 8192)
+                for j in jobs]
+    for job in prepared:
+        lib.le_order_release(job.handle)
+    codes, params, init, table = order_device.pack_jobs(prepared)
+    return [torch.from_numpy(a).to(device) for a in (codes, params, init)], \
+        table
+
+
+def order_bound_ms(args, table) -> tuple[float, str, int, int]:
+    """Read once: both sequences' codes, 36 B of params a diagonal and the
+    init rows; written once: wmax pointer bytes a diagonal; about 40
+    integer operations a lane inside the band (what the data need: the
+    kernel computes every lane of a row).  Neither term sees the chain of
+    dependent diagonals that binds the kernel.  Also the bytes of pointer
+    rows and the lanes inside the band."""
+    import torch
+    from sibelia_tpu_torch.kernels import order_device as od
+    rows = od.rows_bytes(table)
+    lanes = 0
+    for lo, n in table[:, [od.T_PARAMS, od.T_DIAGS]].tolist():
+        lanes += int(args[1][lo:lo + n, 0].sum(dtype=torch.int64))
+    n_bytes = (int(table[:, [od.T_N1, od.T_N2]].sum())
+               + 36 * int(table[:, od.T_DIAGS].sum())
+               + 12 * int(table[:, od.T_WMAX].sum()) + rows)
+    return (*bound_ms(n_bytes, 40 * lanes), rows, lanes)
+
+
+def inband_mask(args, table):
+    """bool [rows_bytes(table)] on the card: the lanes inside the band."""
+    import torch
+    from sibelia_tpu_torch.kernels import order_device as od
+    parts = []
+    for lo, n, w in table[:, [od.T_PARAMS, od.T_DIAGS, od.T_WMAX]].tolist():
+        lane = torch.arange(w, dtype=torch.int32, device=args[1].device)
+        parts.append((lane[None, :] < args[1][lo:lo + n, 0:1]).reshape(-1))
+    return torch.cat(parts)
+
+
+def compare_order(name: str, args, table, device, gpu: str, reps: int = 3,
+                  plain: bool = True) -> dict:
+    """The band DP kernel on one packed batch: its time, its bound and,
+    with `plain`, the plain version's time and the largest difference of a
+    pointer byte inside the band; raises unless that is 0."""
+    import torch
+    from sibelia_tpu_torch.kernels import order_device as od
+    ms, got = timed(lambda: od.band_rows(*args, table), device, reps)
+    bound, bound_by, rows, lanes = order_bound_ms(args, table)
+    out = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+           "row_bytes": rows, "max_abs_err": 0, "plain_ms": None}
+    text = ""
+    if plain:
+        t0 = time.perf_counter()
+        want = od.order_band_rows_plain(*args, table)
+        torch.cuda.synchronize()
+        out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        mask = inband_mask(args, table)
+        diff = (got.to(torch.int16) - want.to(torch.int16)).abs() * mask
+        out["max_abs_err"] = int(diff.max())
+        text = (f", plain {out['plain_ms']:.0f} ms, max |diff| inside the "
+                f"band {out['max_abs_err']}")
+    log(f"  {name}: {table.shape[0]} pairs, wmax "
+        f"{sorted(set(table[:, od.T_WMAX].tolist()))}, diagonals "
+        f"{int(table[:, od.T_DIAGS].min())}-{int(table[:, od.T_DIAGS].max())}"
+        f", {lanes} lanes inside the band, {rows} B of pointer rows: kernel "
+        f"{ms:.3f} ms, bound {bound:.4f} ms by {bound_by}{text} ({gpu})")
+    if out["max_abs_err"]:
+        raise RuntimeError(f"band DP kernel disagrees with plain: {name}")
+    return out
+
+
+def phase_order(device, gpu: str) -> dict:
+    from sibelia_tpu_torch.kernels import order_device as od
+    from sibelia_tpu_torch.native import lagan_order
+    rng = np.random.default_rng(SEED)
+    with_codes = list(related_pair(rng, 3000))
+    with_codes[0] = (with_codes[0][:400] + b"N" * 30 + with_codes[0][430:900]
+                     + b"." + with_codes[0][900:])
+    cases = [
+        ("nd = 2, 3, 9 (wmax 16)", [(b"", b"A", ""), (b"A", b"A", ""),
+                                    (b"ACGT", b"ACGT", "")], 16),
+        ("3 kbp pairs, one with N and '.'",
+         [related_pair(rng, 3000), tuple(with_codes)], 32),
+        ("a square of 12", [related_pair(rng, 2000, 12)], 64),
+        ("a square of 600", [related_pair(rng, 2000, 600)], 1024),
+        ("a square of 5000", [related_pair(rng, 2000, 5000)], 8192)]
+    err = 0
+    every = []
+    for name, pairs, wmax in cases:
+        jobs = order_jobs(pairs)
+        every += jobs
+        args, table = pack_order_jobs(jobs, device)
+        if int(table[:, od.T_WMAX].max()) != wmax:
+            raise RuntimeError(f"{name}: wmax {table[:, od.T_WMAX]}")
+        err = max(err, compare_order(name, args, table, device, gpu,
+                                     1)["max_abs_err"])
+    args, table = pack_order_jobs(every, device)
+    err = max(err, compare_order("all of them in one call", args, table,
+                                 device, gpu, 1)["max_abs_err"])
+    necks = int((args[1][:, 6] == 1).sum())
+    if necks < 10:
+        raise RuntimeError(f"only {necks} neck diagonals in the cases")
+    long = order_jobs([related_pair(rng, 200_000)])
+    args, table = pack_order_jobs(long, device)
+    compare_order("a 200 kbp pair (no plain run: 400,000 Python steps)",
+                  args, table, device, gpu, plain=False)
+    jobs = every + long
+    got = od.order_mfa_device_batch(jobs, device)
+    for job, text in zip(jobs, got):
+        if text is None or text != lagan_order(*job):
+            raise RuntimeError("-mfa text of the card's band DP differs from "
+                               f"native lagan_order: {len(job[0])} bases")
+    log(f"  -mfa text of {len(jobs)} pairs through order_mfa_device_batch on "
+        f"the card equals native lagan_order; {necks} neck diagonals in the "
+        "small cases")
+    return {"max_abs_err": err}
+
+
+# -------------------------------------------------------------- phase 3c --
+
+def hit_set(rng, n: int, tie_heavy: bool = False):
+    """(a_s, a_e, score, ev_hit, ev_isstart) of n random hits along a
+    diagonal band, as chaos gives them; tie_heavy: on a coarse grid with
+    three scores, so that coordinates and scores tie."""
+    from sibelia_tpu_torch.align.anchors_device import event_order
+    span = max(500, 8 * n)
+    a_s = rng.integers(0, span, n)
+    b_s = np.clip(a_s + rng.integers(-200, 201, n), 0, None)
+    ln = rng.integers(1, 40, n)
+    score = rng.integers(-5, 80, n).astype(np.float32)
+    if tie_heavy:
+        a_s, b_s, ln = (a_s // 25) * 25, (b_s // 25) * 25, np.full(n, 20)
+        score = (rng.integers(1, 4, n) * 10).astype(np.float32)
+    ev_h, ev_st = event_order(b_s, b_s + ln)
+    return (a_s.astype(np.int32), (a_s + ln).astype(np.int32), score, ev_h,
+            ev_st)
+
+
+def pack_hit_sets(sets, device):
+    import torch
+    offsets = np.zeros(len(sets) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(s[0]) for s in sets])
+    return [torch.from_numpy(np.concatenate([s[c] for s in sets])).to(device)
+            for c in range(5)], offsets
+
+
+def sweep_bound_ms(offsets) -> tuple[float, str]:
+    """2n events of n lanes, about 6 operations a lane (two compares of
+    the key, the alive test, three of the running maximum); read: a_s,
+    a_e, score and the two event columns, 28 B a hit; written: sofar and
+    bk, 8 B a hit."""
+    n = np.diff(offsets).astype(np.float64)
+    return bound_ms(36 * float(n.sum()) + 8 * len(n),
+                    float((2 * n * n * 6).sum()))
+
+
+def compare_sweep(name: str, args, offsets, device, gpu: str,
+                  reps: int = 3) -> dict:
+    """The sweep kernel vs the plain version on one packed list of hit
+    sets: times, bound and the largest difference over sofar, bk, best and
+    best_val; raises unless every bit is equal."""
+    import torch
+    from sibelia_tpu_torch.align import anchors_device as ad
+    ms, got = timed(lambda: ad.sweep_packed(*args, offsets), device, reps)
+    t0 = time.perf_counter()
+    want = ad.sweep_plain(*args, offsets)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise RuntimeError(f"sweep kernel output {g.dtype} {g.shape}")
+        same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+        err = max(err, float((g.double() - w.double()).abs().max()),
+                  0.0 if same else 1.0)
+    bound, bound_by = sweep_bound_ms(offsets)
+    sizes = np.diff(offsets)
+    log(f"  {name}: {len(sizes)} sets of {int(sizes.min())}-"
+        f"{int(sizes.max())} hits: kernel {ms:.3f} ms, plain {plain_ms:.0f} "
+        f"ms, bound {bound:.5f} ms by {bound_by}, max |diff| {err:g} ({gpu})")
+    if err:
+        raise RuntimeError(f"sweep kernel disagrees with plain: {name}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def timed_host(fn, reps: int = 3) -> tuple[float, object]:
+    """Mean ms of fn() on the host's clock over reps calls after one."""
+    out = fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def compare_anchors_text(name: str, hits: str, device, gpu: str) -> None:
+    """anchors_text_device on the card against native lagan_anchors on one
+    chaos output, with and without the chunk expansion; both timed on the
+    host's clock (the parsers included)."""
+    from sibelia_tpu_torch.align.anchors_device import anchors_text_device
+    from sibelia_tpu_torch.native import lagan_anchors
+    for gfc in (False, True):
+        ms, got = timed_host(lambda: anchors_text_device(hits, gfc, device))
+        native_ms, want = timed_host(lambda: lagan_anchors(hits, gfc=gfc))
+        if got != want or not want:
+            raise RuntimeError(f"anchors text differs from native: {name}")
+        log(f"  {name}, gfc={gfc}: {got.count(chr(10))} anchor lines equal "
+            f"to native lagan_anchors; the stage on the card {ms:.2f} ms "
+            f"(Python parsers, upload, kernel, download), native "
+            f"{native_ms:.2f} ms ({gpu})")
+
+
+def phase_anchors(device, gpu: str) -> dict:
+    from sibelia_tpu_torch.align.anchors_device import SHARED_HITS
+    from sibelia_tpu_torch.native import lagan_chaos
+    rng = np.random.default_rng(SEED)
+    err = 0.0
+    sets = []
+    for n, tie in ((1, False), (2, False), (2, True), (60, False),
+                   (60, True), (1000, True)):
+        s = hit_set(rng, n, tie)
+        sets.append(s)
+        err = max(err, compare_sweep(
+            f"n = {n}{', tie-heavy' if tie else ''}", *pack_hit_sets(
+                [s], device), device, gpu, 1)["max_abs_err"])
+    err = max(err, compare_sweep("a list of sets in one launch",
+                                 *pack_hit_sets(sets, device), device, gpu,
+                                 1)["max_abs_err"])
+    ref = compare_sweep("n = 1000", *pack_hit_sets(
+        [hit_set(rng, 1000)], device), device, gpu)
+    big = compare_sweep(
+        f"n = {SHARED_HITS + 1} (in device memory)",
+        *pack_hit_sets([hit_set(rng, SHARED_HITS + 1)], device), device, gpu,
+        1)
+    a, b = related_pair(rng, 50_000)
+    hits = lagan_chaos(a, "x", b, "y",
+                       f"-s1 1 {len(a)} -s2 1 {len(b)}\n", 12, 0, 25, 0,
+                       gfc=True, ext=True)
+    compare_anchors_text("chaos hits of a 50 kbp pair", hits, device, gpu)
+    ref["max_abs_err"] = max(err, ref["max_abs_err"], big["max_abs_err"])
+    return ref
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def same_enumeration(got, want, same_dtypes: bool = True) -> None:
@@ -783,32 +1106,37 @@ def phase_e2e(strains, work: str) -> dict:
 # ---------------------------------------------------------------- phase 6 --
 
 CSIB_SIZE = 2_800_000  # C-Sibelia's S. aureus example, one strain
+CSIB_FAST_SIZE = 1_400_000  # the fast-mode run: half of it
 
 
-def write_csibelia_pair(work: str) -> tuple[str, str]:
-    """ref.fasta: one 2.8 Mbp strain; asm.fasta: a second strain of the
-    same base cut into contigs of 20-200 kbp."""
-    ref, asm = make_strains(2, CSIB_SIZE, SEED)
+def write_csibelia_pair(work: str, size: int) -> tuple[str, str]:
+    """ref_<size>.fasta: one strain of `size` bases; asm_<size>.fasta: a
+    second strain of the same base cut into contigs of 20-200 kbp."""
+    ref, asm = make_strains(2, size, SEED)
     rng = np.random.default_rng(SEED + 1)
     cuts = [0]
     while len(asm) - cuts[-1] > 200_000:
         cuts.append(cuts[-1] + int(rng.integers(20_000, 200_001)))
     cuts.append(len(asm))
-    paths = os.path.join(work, "ref.fasta"), os.path.join(work, "asm.fasta")
+    paths = (os.path.join(work, f"ref_{size}.fasta"),
+             os.path.join(work, f"asm_{size}.fasta"))
     write_fasta(paths[0], [ref], ["reference"])
     write_fasta(paths[1], [asm[lo:hi] for lo, hi in zip(cuts, cuts[1:])],
                 [f"contig_{i:03d}" for i in range(len(cuts) - 1)])
     return paths
 
 
+FAST = {"SIBELIA_TPU_ALIGNER": "fast", "SIBELIA_TPU_DEVICE_ALIGN": "1"}
+
+
 def run_csibelia(device_name: str, ref: str, asm: str, outdir: str,
-                 tpath: str) -> float:
-    """The port's C-Sibelia CLI, in process, fast aligner with device gap
-    batching, on one device; its wall seconds."""
+                 tpath: str, switches: dict[str, str]) -> float:
+    """The port's C-Sibelia CLI, in process, on one device, under the
+    aligner `switches` (FAST: the fast aligner with device gap batching;
+    none: the default exact mode); its wall seconds."""
     from sibelia_tpu_torch.cli.csibelia import run
     env = {"SIBELIA_TPU_TORCH_DEVICE": device_name,
-           "SIBELIA_TPU_ALIGNER": "fast", "SIBELIA_TPU_DEVICE_ALIGN": "1",
-           "SIBELIA_TPU_TIMINGS": tpath}
+           "SIBELIA_TPU_TIMINGS": tpath, **switches}
     os.environ.update(env)
     t0 = time.perf_counter()
     try:
@@ -839,11 +1167,10 @@ def log_gap_sizes(sizes: np.ndarray) -> None:
         f"n {int(n.max())}, m {int(m.max())}")
 
 
-def phase_csibelia(device, work: str, gpu: str) -> dict:
+def phase_csibelia(device, work: str, gpu: str, ref: str, asm: str) -> dict:
     import sibelia_tpu_torch.variants.aligner as port_aligner
     from sibelia_tpu_torch.core.platform import (GOTOH_FLUSHES, LAUNCHES,
                                                  reset_counts)
-    ref, asm = write_csibelia_pair(work)
     largest: list = []
     sizes: list[tuple[int, int]] = []
     flush_s: list[float] = []
@@ -863,7 +1190,7 @@ def phase_csibelia(device, work: str, gpu: str) -> dict:
     reset_counts()
     try:
         t_card = run_csibelia("cuda", ref, asm,
-                              os.path.join(work, "csib_card"), tpath)
+                              os.path.join(work, "csib_card"), tpath, FAST)
     finally:
         port_aligner.batch_align = batch_align
     launches, flushes = dict(LAUNCHES), list(GOTOH_FLUSHES)
@@ -872,7 +1199,7 @@ def phase_csibelia(device, work: str, gpu: str) -> dict:
     cpu_tpath = os.path.join(work, "csib_cpu.json")
     reset_counts()  # the CPU run's dump counts only its own flushes
     t_cpu = run_csibelia("cpu", ref, asm, os.path.join(work, "csib_cpu"),
-                         cpu_tpath)
+                         cpu_tpath, FAST)
     for name in ("variant.vcf", "alignment.maf"):
         with open(os.path.join(work, "csib_card", name), "rb") as h:
             got = h.read()
@@ -909,6 +1236,129 @@ def phase_csibelia(device, work: str, gpu: str) -> dict:
     log_gotoh_times(name, len(largest), GOTOH_T, rows, dirs_ms, gpu)
     return {"launches": launches, "card_s": t_card, "cpu_s": t_cpu,
             "max_abs_err": max(err, rows["max_abs_err"])}
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+def log_classes(what: str, values, edges) -> None:
+    counts = np.histogram(np.asarray(values), bins=np.array(edges) + 0.5)[0]
+    log(f"  {what}: " + ", ".join(
+        f"{lo + 1}-{hi}: {c}" for lo, hi, c in zip(edges, edges[1:], counts)))
+
+
+def phase_csibelia_exact(device, work: str, gpu: str, ref: str,
+                         asm: str) -> dict:
+    """The default mode of C-Sibelia on the card against the same CLI on
+    the CPU (native anchors and order stages); then both of the exact
+    aligner's kernels again on what the run gave them."""
+    import torch
+    from sibelia_tpu_torch.align import anchors_device as ad
+    from sibelia_tpu_torch.core.platform import LAUNCHES, reset_counts
+    from sibelia_tpu_torch.kernels import order_device as od
+    from sibelia_tpu_torch.native import lagan_anchors
+    batches: list = []   # (args, table) of every band_rows call
+    largest: dict = {}   # the sweep and the anchors text with the most hits
+    sweep_s: list[float] = []
+    band_rows, sweep_packed = od.band_rows, ad.sweep_packed
+    anchors_text_device = ad.anchors_text_device
+
+    def recording_band_rows(*args):
+        batches.append((list(args[:3]), args[3]))
+        return band_rows(*args)
+
+    def recording_sweep(*args):
+        if args[0].shape[0] > largest.get("n", 0):
+            largest.update(n=args[0].shape[0], sweep=args)
+        t0 = time.perf_counter()
+        out = sweep_packed(*args)
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+        return out
+
+    def recording_text(hits_text, gfc, dev):
+        if len(hits_text) > len(largest.get("text", "")):
+            largest.update(text=hits_text, gfc=gfc)
+        return anchors_text_device(hits_text, gfc, dev)
+
+    od.band_rows, ad.sweep_packed = recording_band_rows, recording_sweep
+    ad.anchors_text_device = recording_text
+    hits_before = len(ad.HITS_PER_SWEEP)
+    tpath = os.path.join(work, "exact_timings.json")
+    reset_counts()
+    try:
+        t_card = run_csibelia("cuda", ref, asm,
+                              os.path.join(work, "exact_card"), tpath, {})
+    finally:
+        od.band_rows, ad.sweep_packed = band_rows, sweep_packed
+        ad.anchors_text_device = anchors_text_device
+    launches = dict(LAUNCHES)
+    hits = ad.HITS_PER_SWEEP[hits_before:]
+    with open(tpath) as h:
+        phases = json.load(h)
+    cpu_tpath = os.path.join(work, "exact_cpu.json")
+    reset_counts()
+    t_cpu = run_csibelia("cpu", ref, asm, os.path.join(work, "exact_cpu"),
+                         cpu_tpath, {})
+    for name in ("variant.vcf", "alignment.maf"):
+        with open(os.path.join(work, "exact_card", name), "rb") as h:
+            got = h.read()
+        with open(os.path.join(work, "exact_cpu", name), "rb") as h:
+            want = h.read()
+        if got != want:
+            raise RuntimeError(f"exact C-Sibelia output differs: {name}")
+    with open(os.path.join(work, "exact_card", "variant.vcf")) as h:
+        records = sum(1 for ln in h if not ln.startswith("#"))
+    log(f"  variant.vcf ({records} records) and alignment.maf identical; "
+        f"card {t_card:.3f} s, CPU (native stages) {t_cpu:.3f} s; launches "
+        f"{launches}")
+    log("  card run phases (s): " + json.dumps(phases, sort_keys=True))
+    with open(cpu_tpath) as h:
+        log("  CPU run phases (s): " + json.dumps(json.load(h),
+                                                  sort_keys=True))
+    tables = np.concatenate([t for _, t in batches])
+    log(f"  band DPs: {phases['order_device_jobs']} on the card in "
+        f"{len(batches)} batches, {phases['order_host_fallback']} kept by "
+        f"the native engine (order_host_fallback); "
+        f"{phases['order_row_bytes']} B of pointer rows came back")
+    log_classes("diagonals a pair", tables[:, od.T_DIAGS],
+                [0, 1000, 4000, 16_000, 64_000, 256_000, 1_024_000])
+    log("  wmax: " + ", ".join(
+        f"{w}: {int((tables[:, od.T_WMAX] == w).sum())}"
+        for w in np.unique(tables[:, od.T_WMAX]).tolist()))
+    log(f"  sweeps: {len(hits)}, {sum(sweep_s):.3f} s in sweep_packed (the "
+        f"launch and a synchronise; the longest {max(sweep_s):.4f} s)")
+    log_classes("hits a sweep", hits,
+                [0, 1, 4, 16, 64, 256, 1024, 4096, 16_384, 1 << 20])
+    if (launches.get("order_band", 0) <= 0
+            or launches.get("anchors_sweep", 0) <= 0
+            or phases["order_device_jobs"] <= 0 or records <= 0):
+        raise RuntimeError("the exact run did not go through the card: no "
+                           "band DP or no sweep launch")
+
+    # the band DP on the run's largest batch, and against the plain version
+    # on that batch's pairs of up to ORDER_PLAIN_DIAGS diagonals
+    args, table = max(batches, key=lambda b: od.rows_bytes(b[1]))
+    whole = compare_order("the run's largest batch", args, table, device,
+                          gpu, plain=False)
+    keep = np.flatnonzero((table[:, od.T_DIAGS] <= ORDER_PLAIN_DIAGS)
+                          & (table[:, od.T_WMAX] <= 256))[:48]
+    if keep.size == 0:  # then the pair with the fewest diagonals
+        keep = np.array([int(table[:, od.T_DIAGS].argmin())])
+    order = compare_order(
+        f"its pairs of at most {ORDER_PLAIN_DIAGS} diagonals",
+        args, od.sub_table(table, keep), device, gpu)
+    order["batch_ms"] = whole["ms"]
+    sweep = compare_sweep("the run's largest hit set", largest["sweep"][:5],
+                          largest["sweep"][5], device, gpu)
+    native_ms, _ = timed_host(lambda: lagan_anchors(largest["text"],
+                                                    gfc=largest["gfc"]))
+    stage_ms, _ = timed_host(lambda: anchors_text_device(
+        largest["text"], largest["gfc"], device))
+    log(f"  the anchors stage on that set's text ({largest['n']} hits): on "
+        f"the card {stage_ms:.2f} ms (Python parsers, upload, kernel, "
+        f"download), native lagan_anchors {native_ms:.2f} ms ({gpu})")
+    return {"launches": launches, "card_s": t_card, "cpu_s": t_cpu,
+            "order": order, "sweep": sweep}
 
 
 # ---------------------------------------------------------------- profile --
@@ -1010,7 +1460,8 @@ def gpu_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="build and check both kernels only (phases 1-3)")
+                    help="build and check the four kernels only (phases "
+                    "1-3c)")
     ap.add_argument("--profile", metavar="DIR",
                     help="time the steps of the phase 4 enumeration only")
     args = ap.parse_args()
@@ -1023,7 +1474,9 @@ def main() -> int:
     try:
         from sibelia_tpu_torch.core.platform import resolve_device
         from sibelia_tpu_torch.index.enumeration import build_supergenome
-        from sibelia_tpu_torch.kernels import enum_scan, gotoh, nvcc
+        from sibelia_tpu_torch.align import anchors_device
+        from sibelia_tpu_torch.kernels import (enum_scan, gotoh, nvcc,
+                                               order_device)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -1033,15 +1486,17 @@ def main() -> int:
     gpu = gpu_line()
     log(f"[build] torch {torch.__version__} CUDA {torch.version.cuda}; {gpu}")
     t0 = time.perf_counter()
-    built = nvcc.build_all(["enum_scan", "gotoh"])
-    enum_scan.build()
-    gotoh.build()
+    built = nvcc.build_all(["enum_scan", "gotoh", "order_band",
+                            "anchors_sweep"])
+    for module in (enum_scan, gotoh, order_device, anchors_device):
+        module.build()
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s, one nvcc "
         "each, in parallel: " + ", ".join(f"{nvcc.source(name)} done at "
                                           f"{t:.2f} s" for name, t in
                                           built.items()))
-    for line in nvcc.BUILD_LOG.get("gotoh", "").splitlines():
-        log(f"  gotoh.cu: {line}")
+    for name in ("gotoh", "order_band", "anchors_sweep"):
+        for line in nvcc.BUILD_LOG.get(name, "").splitlines():
+            log(f"  {name}.cu: {line}")
 
     t0 = time.perf_counter()
     strains = make_strains(16, 2_000_000, SEED)
@@ -1053,29 +1508,51 @@ def main() -> int:
     codes, _ = build_supergenome(strains)
     codes_d = torch.from_numpy(codes).to(device)
 
+    phase_done("build and data")
     log("[kernel] segment scan kernel vs plain PyTorch, bit-equal")
     scan = phase_kernel(device, codes_d)
     del codes_d
+    phase_done("kernel")
     log("[gotoh] Gotoh kernel vs plain PyTorch: aligned rows and lengths "
         "equal, and all four planes of its plane-writing form bit-equal")
     dirs = phase_gotoh(device, gpu)
+    phase_done("gotoh")
+    log("[order] band DP kernel vs plain PyTorch, pointer bytes inside the "
+        "band bit-equal; -mfa text vs native lagan_order")
+    order = phase_order(device, gpu)
+    phase_done("order")
+    log("[anchors] sweep kernel vs plain PyTorch, sofar, bk, best and "
+        "best_val bit-equal; anchors text vs native lagan_anchors")
+    sweep = phase_anchors(device, gpu)
+    phase_done("anchors")
     if args.kernels:
         log(f"  {gpu}; took {time.perf_counter() - t_run:.1f} s")
         return 0
     log("[enum] k=30 min_branch=150 enumeration, card vs CPU")
     phase_enumeration(device, strains)
+    phase_done("enum")
     log(f"[enum_k] k in {ENUM_KS} enumeration by prefix doubling, card vs "
         "host native")
     phase_enum_k(device, strains, gpu)
+    phase_done("enum_k")
     log("[e2e] sibelia_tpu_torch.cli.sibelia -s loose -m 5000, 4 x 2 Mbp, "
         "card vs CPU")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         e2e = phase_e2e(strains[:4], work)
+    phase_done("e2e")
     del strains
     log("[csibelia] sibelia_tpu_torch.cli.csibelia, fast aligner with device "
-        "gap batching, 2.8 Mbp reference vs contigs, card vs CPU")
+        "gap batching, 1.4 Mbp reference vs contigs, card vs CPU")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        csib = phase_csibelia(device, work, gpu)
+        csib = phase_csibelia(device, work, gpu,
+                              *write_csibelia_pair(work, CSIB_FAST_SIZE))
+        phase_done("csibelia")
+        log("[csibelia_exact] sibelia_tpu_torch.cli.csibelia, no aligner "
+            "switch set (exact LAGAN: anchors sweeps and band DPs on the "
+            "card), 2.8 Mbp reference vs contigs, card vs CPU")
+        exact = phase_csibelia_exact(device, work, gpu,
+                                     *write_csibelia_pair(work, CSIB_SIZE))
+        phase_done("csibelia_exact")
     loaded = sorted({m.split(".")[0] for m in sys.modules}
                     & {"jax", "jaxlib", "sibelia_tpu"})
     if loaded:
@@ -1096,6 +1573,23 @@ def main() -> int:
         "ms": dirs["ms"], "plain_ms": dirs["plain_ms"],
         "bound_ms": dirs["bound_ms"], "bound_by": dirs["bound_by"],
         "library_ms": None}]
+    # the two kernels of the exact aligner: times, bounds and plain times
+    # on what the exact run gave them; errors over phases 3b, 3c and 7
+    for name, source, replaces, alone, run in (
+            ("order_band", "kernels/csrc/order_band.cu",
+             "sibelia_tpu/kernels/order_device.py:171", order,
+             exact["order"]),
+            ("anchors_sweep", "kernels/csrc/anchors_sweep.cu",
+             "sibelia_tpu/align/anchors_device.py:251", sweep,
+             exact["sweep"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sibelia_tpu_torch/" + source, "replaces": replaces,
+            "launches": exact["launches"][name],
+            "max_abs_err": max(alone["max_abs_err"], run["max_abs_err"]),
+            "ms": run["ms"], "plain_ms": run["plain_ms"],
+            "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
+            "library_ms": None})
     log(f"[done] k={BIG_K} shape: segment scan kernel {scan['big_ms']:.3f} "
         f"ms, plain {scan['big_plain_ms']:.3f} ms; chip_smoke took "
         f"{time.perf_counter() - t_run:.1f} s")

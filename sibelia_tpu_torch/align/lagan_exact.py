@@ -1,6 +1,11 @@
-"""Exact LAGAN pipeline (lagan.pl / rechaos.pl semantics; copy of
-``sibelia_tpu/align/lagan_exact.py`` without its device branches: the
-anchors and order stages always run in the native library).
+"""Exact LAGAN pipeline (lagan.pl / rechaos.pl semantics; twin of
+``sibelia_tpu/align/lagan_exact.py``).  Where the JAX package asks
+``device_dispatch()``, the functions here take the run's ``device``: on a
+CUDA device the anchors stage and the order stage's band DP run on the
+card (``align/anchors_device.py``, ``kernels/order_device.py``); with
+``None`` or the CPU they run in the native library, unless
+``SIBELIA_TPU_ANCHORS_DEVICE=1`` or ``SIBELIA_TPU_DEVICE_ORDER=1`` forces
+the device modules (on the CPU their plain versions).
 
 Drives the native chaos / anchors / order stage primitives
 (native/lagan_*.cpp) through the recursive anchoring scheme of
@@ -27,7 +32,41 @@ from __future__ import annotations
 
 import re
 
+import os
+
+import torch
+
+from ..core import timings
 from ..native import lagan_anchors, lagan_chaos, lagan_order
+
+
+def _on_card(device: torch.device | None) -> bool:
+    return device is not None and device.type == "cuda"
+
+
+def _anchors_stage(hits_text: str, gfc: bool,
+                   device: torch.device | None) -> str:
+    """anchors stage dispatch: the device weighted-LIS sweep
+    (align/anchors_device.py, byte-equal by differential test) on a CUDA
+    device or when SIBELIA_TPU_ANCHORS_DEVICE=1; the native C++ sweep
+    otherwise, and for hits the device sweep does not take."""
+    env = os.environ.get("SIBELIA_TPU_ANCHORS_DEVICE")
+    use_dev = env == "1" if env is not None else _on_card(device)
+    if use_dev:
+        from .anchors_device import anchors_text_device
+        out = anchors_text_device(hits_text, gfc, device
+                                  or torch.device("cpu"))
+        if out is not None:
+            return out
+    return lagan_anchors(hits_text, gfc=gfc)
+
+
+def order_on_device(device: torch.device | None) -> bool:
+    """Whether the order stage's band DP goes to kernels/order_device.py:
+    SIBELIA_TPU_DEVICE_ORDER=0 forces the host, any other value the device
+    module, unset means a CUDA device."""
+    env = os.environ.get("SIBELIA_TPU_DEVICE_ORDER")
+    return env != "0" if env is not None else _on_card(device)
 
 
 # rechaos.pl:14 minus the translated level (skipped when -translate is off)
@@ -66,7 +105,8 @@ def _gnu_sort_n_k2(lines: list[str], reverse: bool = False) -> list[str]:
 
 def rechaos(seq1: bytes, name1: str, seq2: bytes, name2: str,
             gfc: bool = True,
-            levels: list[tuple[int, int, int, int]] | None = None) -> str:
+            levels: list[tuple[int, int, int, int]] | None = None,
+            device: torch.device | None = None) -> str:
     """Returns the final anchor text (rechaos.pl stdout: anchors sorted by
     seq1 end, descending).  lagan.pl passes -gfc (gap-free chunk anchors);
     mlagan calls rechaos without it (whole-hit anchors, mlagan.c:231-240).
@@ -99,7 +139,7 @@ def rechaos(seq1: bytes, name1: str, seq2: bytes, name2: str,
             app_str += (f"seq1 {clipright1} {t1}; seq2 {clipright2} {t2}; "
                         f"score={SENTINEL_RIGHT} (+)\n")
         anchtemp = hits + app_str
-        anch = lagan_anchors(anchtemp, gfc=gfc)
+        anch = _anchors_stage(anchtemp, gfc, device)
         sorted_lines = _gnu_sort_n_k2(
             [l for l in anch.split("\n") if l != ""])
         if not stillmore:
@@ -143,9 +183,21 @@ def rechaos(seq1: bytes, name1: str, seq2: bytes, name2: str,
         l + "\n" for l in _gnu_sort_n_k2(sorted_lines, reverse=True))
 
 
-def lagan_pl_mfa(seq1: bytes, name1: str, seq2: bytes, name2: str) -> str:
-    """Full ``lagan.pl seq1 seq2 -mfa`` replacement; returns the mfa text."""
-    anchors = rechaos(seq1, name1, seq2, name2)
+def lagan_pl_mfa(seq1: bytes, name1: str, seq2: bytes, name2: str,
+                 device: torch.device | None = None) -> str:
+    """Full ``lagan.pl seq1 seq2 -mfa`` replacement; returns the mfa text.
+
+    The order-stage band DP goes to `device` when it is a card
+    (kernels/order_device.py: byte-identical pointer matrix, native band
+    construction and traceback); SIBELIA_TPU_DEVICE_ORDER=1/0 forces it
+    on or off."""
+    anchors = rechaos(seq1, name1, seq2, name2, device=device)
+    if order_on_device(device):
+        from ..kernels.order_device import order_mfa_device
+        dev = order_mfa_device(seq1, name1, seq2, name2, anchors,
+                               device or torch.device("cpu"))
+        if dev is not None:
+            return dev
     return lagan_order(seq1, name1, seq2, name2, anchors)
 
 
@@ -166,11 +218,45 @@ def _mfa_rows(mfa: str) -> tuple[str, str]:
 
 def align_pair_exact(a: bytes, b: bytes,
                      name_a: str = "seq_a",
-                     name_b: str = "seq_b") -> tuple[str, str]:
+                     name_b: str = "seq_b",
+                     device: torch.device | None = None) -> tuple[str, str]:
     """Aligned rows for a unique block pair, byte-identical to the rows the
     reference C-Sibelia obtains from ``lagan.pl -mfa``."""
     if isinstance(a, str):
         a = a.encode()
     if isinstance(b, str):
         b = b.encode()
-    return _mfa_rows(lagan_pl_mfa(a, name_a, b, name_b))
+    return _mfa_rows(lagan_pl_mfa(a, name_a, b, name_b, device))
+
+
+def align_pairs_exact_batch(
+        pairs: list[tuple[bytes, bytes, str, str]],
+        processes: int = 1,
+        device: torch.device | None = None,
+) -> list[tuple[str, str] | None]:
+    """Batched unique-pair alignment: anchors per pair (fanned over a
+    thread pool when processes > 1: the native chaos engine releases the
+    GIL), then every band DP in one batched call on the device
+    (kernels/order_device.py).  Entries come back None when a pair needs
+    the host fallback (band too wide); rows are byte-identical to
+    align_pair_exact either way."""
+    from ..kernels.order_device import order_mfa_device_batch
+
+    def one(p):
+        a, b, name_a, name_b = p
+        if isinstance(a, str):
+            a = a.encode()
+        if isinstance(b, str):
+            b = b.encode()
+        return (a, name_a, b, name_b,
+                rechaos(a, name_a, b, name_b, device=device))
+
+    with timings.phase("rechaos"):
+        if processes > 1 and len(pairs) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=processes) as pool:
+                jobs = list(pool.map(one, pairs))
+        else:
+            jobs = [one(p) for p in pairs]
+    res = order_mfa_device_batch(jobs, device or torch.device("cpu"))
+    return [None if mfa is None else _mfa_rows(mfa) for mfa in res]

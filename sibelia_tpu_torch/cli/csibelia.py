@@ -8,14 +8,22 @@ runs the port's Sibelia CLI with C-Sibelia's fixed flag set (-q
 device that ``SIBELIA_TPU_TORCH_DEVICE`` selects, and writes the VCF (and
 the MAF, the unmapped insertions).
 
-Refused with exit code 1, as not yet ported: ``SIBELIA_TPU_DEVICE_ORDER``
-other than 0 and ``SIBELIA_TPU_ANCHORS_DEVICE=1``, which select the JAX
-package's device modules ``kernels/order_device.py`` and
-``align/anchors_device.py``, and whatever the port's Sibelia CLI refuses.
+In the default (exact) aligner mode on a card, every unique pair's anchors
+stage and band DP run there (``align/anchors_device.py``,
+``kernels/order_device.py``); ``SIBELIA_TPU_ANCHORS_DEVICE=1`` and
+``SIBELIA_TPU_DEVICE_ORDER=1`` force those modules on whatever the device is
+(on the CPU their plain versions), ``SIBELIA_TPU_DEVICE_ORDER=0`` keeps the
+band DP in the native library.  Refused with exit code 1: whatever the
+port's Sibelia CLI refuses.
 
 ``SIBELIA_TPU_TIMINGS=<path>`` dumps the phase seconds with the launch
 counts, ``gotoh_flushes`` (gap batches the fast aligner closed) and
-``gotoh_pairs`` (gap subproblems in them).
+``gotoh_pairs`` (gap subproblems in them), and of the exact aligner's
+device path ``order_device_jobs`` and ``order_host_fallback`` (band DPs
+sent to the device module, and kept by the native engine for their width),
+``order_row_bytes`` (pointer rows brought back) and ``anchors_sweeps``; its
+phases are ``rechaos``, with ``anchors_device`` inside it,
+``order_prepare``, ``order_device`` and ``order_finish``.
 """
 from __future__ import annotations
 
@@ -25,22 +33,19 @@ import shutil
 import sys
 import tempfile
 
+from ..align import anchors_device
 from ..core import timings
 from ..core.platform import GOTOH_FLUSHES, resolve_device
+from ..kernels import order_device
 from ..variants import caller
 from .sibelia import _refuse_unported, build_arg_parser, write_timings
 from .sibelia import run as sibelia_run
 
 
-def _refuse_unported_align() -> None:
-    asked = []
-    if os.environ.get("SIBELIA_TPU_DEVICE_ORDER", "0") != "0":
-        asked.append("SIBELIA_TPU_DEVICE_ORDER")
-    if os.environ.get("SIBELIA_TPU_ANCHORS_DEVICE") == "1":
-        asked.append("SIBELIA_TPU_ANCHORS_DEVICE=1")
-    if asked:
-        raise RuntimeError(", ".join(asked) + " not yet ported to "
-                           "sibelia_tpu_torch; use sibelia_tpu.cli.csibelia")
+def _exact_counts() -> tuple[int, int, int, int]:
+    return (order_device.STATS["device_jobs"],
+            order_device.STATS["host_fallback"], order_device.ROW_BYTES[0],
+            len(anchors_device.HITS_PER_SWEEP))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +78,6 @@ def _sibelia_argv(args, outdir: str) -> list[str]:
 def run(argv: list[str]) -> int:
     args = build_parser().parse_args(argv)
     try:
-        _refuse_unported_align()
         _refuse_unported(
             build_arg_parser().parse_args(_sibelia_argv(args, ".")))
         device = resolve_device()
@@ -81,6 +85,7 @@ def run(argv: list[str]) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    counts_before = _exact_counts()
     cleanup = False
     if args.outdir is None:
         if args.tempdir is None:
@@ -147,8 +152,14 @@ def run(argv: list[str]) -> int:
                 caller.write_alignments_maf(alignment_list, h)
         return 0
     finally:
+        exact = [now - before for now, before in zip(_exact_counts(),
+                                                      counts_before)]
         write_timings({"gotoh_flushes": len(GOTOH_FLUSHES),
-                       "gotoh_pairs": sum(GOTOH_FLUSHES)})
+                       "gotoh_pairs": sum(GOTOH_FLUSHES),
+                       "order_device_jobs": exact[0],
+                       "order_host_fallback": exact[1],
+                       "order_row_bytes": exact[2],
+                       "anchors_sweeps": exact[3]})
         if cleanup:
             shutil.rmtree(temp_dir, ignore_errors=True)
 

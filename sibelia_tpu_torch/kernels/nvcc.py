@@ -14,6 +14,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -22,6 +23,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the exact aligner's thread pool (-p > 1) can reach a first load from
+# several threads at once
+_LOAD_LOCK = threading.Lock()
 # name -> the compiler's output of the build this process made, if any
 BUILD_LOG: dict[str, str] = {}
 
@@ -72,8 +76,9 @@ def build_all(names: list[str]) -> dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The library of csrc/<name>.cu, built if missing or stale."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = _LIBS[name] = ctypes.CDLL(_library(name))
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _LIBS[name] = ctypes.CDLL(_library(name))
+        return lib

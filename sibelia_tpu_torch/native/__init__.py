@@ -145,6 +145,26 @@ def load_lagan() -> ctypes.CDLL:
         ctypes.c_char_p]
     lib.le_free.restype = None
     lib.le_free.argtypes = [ctypes.c_void_p]
+    # the order stage split around the band DP (kernels/order_device.py)
+    lib.le_order_prepare.restype = ctypes.c_void_p
+    lib.le_order_prepare.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_long,
+        ctypes.c_char_p]
+    lib.le_order_dims.restype = None
+    lib.le_order_dims.argtypes = [ctypes.c_void_p,
+                                  ctypes.POINTER(ctypes.c_longlong)]
+    lib.le_order_band.restype = None
+    lib.le_order_band.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p]
+    lib.le_order_seq.restype = None
+    lib.le_order_seq.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.le_order_finish.restype = ctypes.c_void_p
+    lib.le_order_finish.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_void_p,
+        ctypes.c_longlong]
+    lib.le_order_release.restype = None
+    lib.le_order_release.argtypes = [ctypes.c_void_p]
     lib.ml_create.restype = ctypes.c_void_p
     lib.ml_create.argtypes = [ctypes.c_int]
     lib.ml_set_seq.restype = None

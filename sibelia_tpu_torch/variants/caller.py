@@ -4,10 +4,12 @@
 Against the JAX module one branch differs: a unique pair aligned by the fast
 aligner (``SIBELIA_TPU_ALIGNER=fast``) with ``SIBELIA_TPU_DEVICE_ALIGN=1``
 closes its small gaps through the port's ``GapBatcher`` on the run's device.
-The exact LAGAN and mlagan engines run in the native library
-(``align/lagan_exact.py``, ``align/mlagan_exact.py``); their device batching
-(``align_pairs_exact_batch``) is not ported, so ``_batch_align_unique`` only
-fans the exact aligner over a thread pool for ``-p > 1``.
+The exact LAGAN and mlagan engines (``align/lagan_exact.py``,
+``align/mlagan_exact.py``) take the run's device where the JAX package asks
+``device_dispatch()``: on a card ``_batch_align_unique`` sends every unique
+pair through ``align_pairs_exact_batch`` (anchors by the device sweep, all
+band DPs in one batched device call), on the CPU it fans the native aligner
+over a thread pool for ``-p > 1``.
 
 Capability twin of the reference script (reference:
 src/csibelia/C-Sibelia.py), built as array programs: the alignment
@@ -327,7 +329,7 @@ def process_block(block, prealigned, device: torch.device):
             name0 = ref_inst.chr_id + str(ref_inst.start) + "_" + str(ref_inst.end)
             name1 = asm_inst.chr_id + str(asm_inst.start) + "_" + str(asm_inst.end)
             rows = list(lagan_exact.align_pair_exact(
-                ref_inst.seq, asm_inst.seq, name0, name1))
+                ref_inst.seq, asm_inst.seq, name0, name1, device))
         elif os.environ.get("SIBELIA_TPU_DEVICE_ALIGN") == "1":
             rows = list(align_pair(ref_inst.seq, asm_inst.seq,
                                    batcher=GapBatcher(device)))
@@ -347,7 +349,7 @@ def process_block(block, prealigned, device: torch.device):
         by_name = dict(zip(names, instance_list))
         fasta = mlagan_exact.mlagan_fasta(
             [inst.seq.encode() if isinstance(inst.seq, str) else inst.seq
-             for inst in instance_list], names)
+             for inst in instance_list], names, device)
         records = []
         cur_name, cur = None, []
         for line in fasta.split("\n"):
@@ -366,15 +368,20 @@ def process_block(block, prealigned, device: torch.device):
                 for body, inst in zip(rows, instance_list)]
 
 
-def _batch_align_unique(annotated_block, processes=1):
-    """Pre-align unique pairs out of the sequential block loop: the exact
-    aligner fans out over a thread pool — the in-process analogue of the
-    reference's multiprocessing.Pool (C-Sibelia.py:349); the native engines
-    release the GIL.  Returns {block_id: (row0, row1)}; empty when there is
-    nothing to gain (serial run) or a non-exact aligner is chosen."""
+def _batch_align_unique(annotated_block, processes=1,
+                        device: torch.device | None = None):
+    """Pre-align unique pairs out of the sequential block loop: anchors
+    (and, without a card, the whole pair) fan out over a thread pool (the
+    in-process analogue of the reference's multiprocessing.Pool,
+    C-Sibelia.py:349; the native engines release the GIL) and band DPs
+    batch into one device call.  Returns {block_id: (row0, row1)},
+    possibly partial; process_block falls back per pair.  Empty when
+    there is nothing to gain (serial host run) or a non-exact aligner is
+    chosen."""
+    use_dev = lagan_exact.order_on_device(device)
     if os.environ.get("SIBELIA_TPU_ALIGNER", "exact") != "exact":
         return {}
-    if processes <= 1:
+    if not use_dev and processes <= 1:
         return {}
     ids, pairs = [], []
     for unique, sbid, instance_list in annotated_block:
@@ -387,14 +394,25 @@ def _batch_align_unique(annotated_block, processes=1):
         pairs.append((ref_inst.seq, asm_inst.seq, name0, name1))
     if not pairs:
         return {}
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(max_workers=processes) as pool:
-        rows = list(pool.map(
-            lambda p: lagan_exact.align_pair_exact(
-                p[0].encode() if isinstance(p[0], str) else p[0],
-                p[1].encode() if isinstance(p[1], str) else p[1],
-                p[2], p[3]), pairs))
-    return dict(zip(ids, rows))
+    if use_dev:
+        rows = lagan_exact.align_pairs_exact_batch(pairs, processes, device)
+        if os.environ.get("SIBELIA_TPU_TRACE") == "1":
+            import sys
+            from ..kernels.order_device import get_stats
+            st = get_stats()
+            print(f"[trace] order device coverage: "
+                  f"{st['device_jobs']} device / "
+                  f"{st['host_fallback']} host-fallback band DPs",
+                  file=sys.stderr)
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=processes) as pool:
+            rows = list(pool.map(
+                lambda p: lagan_exact.align_pair_exact(
+                    p[0].encode() if isinstance(p[0], str) else p[0],
+                    p[1].encode() if isinstance(p[1], str) else p[1],
+                    p[2], p[3], device), pairs))
+    return {sbid: r for sbid, r in zip(ids, rows) if r is not None}
 
 
 def depict_coverage(block_seq, reference_seq, assembly_seq, base_cover):
@@ -495,7 +513,7 @@ def call_variants(directory, genomes, reference_seq, assembly_seq,
             instance_list = [ref_inst, asm_inst]
         annotated_block.append((unique, synteny_block_id, instance_list))
 
-    prealigned = _batch_align_unique(annotated_block, processes)
+    prealigned = _batch_align_unique(annotated_block, processes, device)
     variant: list[Variant] = []
     alignment: list[list[AlignmentRecord]] = []
     for block in annotated_block:

@@ -5,7 +5,8 @@ reference / assembly pair with planted SNPs and indels.
 In fast mode with device gap batching the port closes its gap batches
 with the plain version of the Gotoh kernel, the JAX package with the
 Pallas kernel in interpret mode; in the default mode both run the exact
-LAGAN engine.  VCF (and MAF) byte-identical."""
+LAGAN engine, in the native library or, with the device switches, through
+their device modules on the CPU.  VCF and MAF byte-identical."""
 import json
 import os
 import subprocess
@@ -62,15 +63,36 @@ def test_exact_mode_matches_jax(tmp_path):
                     {})
     got = _outputs("sibelia_tpu_torch.cli.csibelia", ref, asm,
                    tmp_path / "port", {})
-    assert got[0] == want[0]
+    assert got == want  # the VCF and the MAF
 
 
-@pytest.mark.parametrize("var", ["SIBELIA_TPU_DEVICE_ORDER",
-                                 "SIBELIA_TPU_ANCHORS_DEVICE"])
-def test_unported_device_modules_are_refused(tmp_path, var):
+DEVICE_PATH = {"SIBELIA_TPU_DEVICE_ORDER": "1",
+               "SIBELIA_TPU_ANCHORS_DEVICE": "1"}
+
+
+@pytest.mark.parametrize("switches", [DEVICE_PATH,
+                                      {"SIBELIA_TPU_DEVICE_ORDER": "0"}],
+                         ids=["device path forced", "band DP on the host"])
+def test_exact_mode_device_switches_match_jax(tmp_path, switches):
+    """The exact aligner's device path, forced on the CPU (the port runs
+    the plain versions of its two kernels, the JAX package its scans), and
+    the band DP forced to the host: the same VCF and MAF as the JAX CLI
+    under the same switches."""
     ref, asm = write_pair_fixture(tmp_path)
-    r = _run("sibelia_tpu_torch.cli.csibelia", ref, asm, tmp_path / "o",
-             {var: "1"})
-    assert r.returncode == 1
-    assert "not yet ported to sibelia_tpu_torch" in r.stderr
-    assert not (tmp_path / "o").exists()
+    timings = tmp_path / "timings.json"
+    want = _outputs("sibelia_tpu.cli.csibelia", ref, asm, tmp_path / "jax",
+                    switches)
+    got = _outputs("sibelia_tpu_torch.cli.csibelia", ref, asm,
+                   tmp_path / "port",
+                   dict(switches, SIBELIA_TPU_TIMINGS=str(timings)))
+    assert got == want
+    phases = json.loads(timings.read_text())
+    assert not any(key.startswith("launches_") for key in phases)
+    assert phases["order_host_fallback"] == 0
+    if switches is DEVICE_PATH:
+        assert phases["order_device_jobs"] > 0
+        assert phases["anchors_sweeps"] >= phases["order_device_jobs"]
+        assert phases["order_row_bytes"] > 0
+    else:
+        assert phases["order_device_jobs"] == 0
+        assert phases["anchors_sweeps"] == 0

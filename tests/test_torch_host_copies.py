@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import sibelia_tpu as J
+import sibelia_tpu.align.anchors_device
 import sibelia_tpu.align.lagan_exact
 import sibelia_tpu.align.mlagan_exact
 import sibelia_tpu.align.seqan_local
@@ -30,10 +31,12 @@ import sibelia_tpu.core.stdsort
 import sibelia_tpu.core.timings
 import sibelia_tpu.graph.indexed
 import sibelia_tpu.io.writers
+import sibelia_tpu.kernels.order_device
 import sibelia_tpu.native
 import sibelia_tpu.variants.aligner
 import sibelia_tpu.variants.caller
 import sibelia_tpu_torch as P
+import sibelia_tpu_torch.align.anchors_device
 import sibelia_tpu_torch.align.lagan_exact
 import sibelia_tpu_torch.align.mlagan_exact
 import sibelia_tpu_torch.align.seqan_local
@@ -49,6 +52,7 @@ import sibelia_tpu_torch.core.stdsort
 import sibelia_tpu_torch.core.timings
 import sibelia_tpu_torch.graph.indexed
 import sibelia_tpu_torch.io.writers
+import sibelia_tpu_torch.kernels.order_device
 import sibelia_tpu_torch.native.engine_runner
 import sibelia_tpu_torch.variants.aligner
 import sibelia_tpu_torch.variants.caller
@@ -301,10 +305,66 @@ def caller(pkg, rng, tmp_path):
     return [str(v) for v in variants], out.getvalue()
 
 
+def anchors_host_half(pkg, rng, tmp_path):
+    """The parsers of align/anchors_device.py, and the order of the events
+    its sweep is handed (tie-heavy hits: runs of equal end events)."""
+    mod = pkg.align.anchors_device
+    lines = ["seq1 %d %d; seq2 %d %d; score = %.1f (+)"
+             % (a, a + 20, b, b + 20, 10.0 * sc)
+             for a, b, sc in zip(rng.integers(0, 20, 60) * 25,
+                                 rng.integers(0, 20, 60) * 25,
+                                 rng.integers(1, 4, 60))]
+    lines += ["10 12 20 55", " 7 8 9", "x 1 2; 3 4; score=1e2", "",
+              "a 5 9 ; b 1 2 3 ; score = -.5 (-)", "1 2; 3 4; scor=1"]
+    scan = mod._Scan(" -12 +7x 3.5e1 .e")
+    scanned = [scan.int_(), scan.int_(), scan.lit("x"), scan.float_(),
+               scan.float_(), scan.i]
+    events = []
+
+    def record(*args):
+        ev_h, ev_st = ((args[0][0][3], args[0][0][4]) if pkg is P
+                       else (args[3], args[4]))
+        events.append((ev_h.tolist(), ev_st.tolist()))
+        n = len(ev_h) // 2
+        out = (np.zeros(n, np.float32), np.full(n, -1, np.int32), 0, -2.0)
+        return [out] if pkg is P else out
+
+    name = "sweep" if pkg is P else "_sweep_device"
+    real = getattr(mod, name)
+    setattr(mod, name, record)
+    try:
+        text = mod.anchors_text_device("\n".join(lines))
+    finally:
+        setattr(mod, name, real)
+    return ([mod._rolltonum(ln) for ln in lines],
+            [mod._parse_hit(ln) for ln in lines],
+            [mod._parse_chunk(ln) for ln in lines], scanned, events, text)
+
+
+def order_prepare_job(pkg, rng, tmp_path):
+    """kernels/order_device.py::_prepare_job: the per-diagonal params, the
+    init rows and the codes of a pair with an indel and a contig break."""
+    mod = pkg.kernels.order_device
+    a, b = _pair(rng, 700)
+    a = a[:200] + b"." + a[200:500] + b"N" * 9 + a[500:]
+    anchors = pkg.align.lagan_exact.rechaos(a, "x", b, "y")
+    lib = pkg.native.load_lagan()
+    job = mod._prepare_job(lib, a, b, anchors, 8192)
+    lib.le_order_release(job.handle)
+    rows = job.nd - 1
+    return (job.nd, job.wmax, np.asarray(job.params)[:rows].tolist(),
+            [np.asarray(r).tolist() for r in job.init],
+            np.asarray(job.s1c).tolist(), np.asarray(job.s2c).tolist(),
+            mod._SM.tolist(), mod._CODE.tolist(),
+            (mod.GAP_START, mod.GAP_CONT, int(mod.DUMMY),
+             mod._ROWS_BUDGET_BYTES, mod._bucket(5000, 4096)))
+
+
 CASES = [glibc_rand, stdsort, boost_unordered, py2_dict, config, progress,
          timings, fasta, bifstore, list_edges, native_engine_sweep,
          native_ranking_enumeration, lagan_exact, mlagan_exact, seqan_local,
-         postprocess, boundaries, writers, aligner, caller]
+         postprocess, boundaries, writers, aligner, caller,
+         anchors_host_half, order_prepare_job]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__)

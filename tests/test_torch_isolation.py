@@ -44,6 +44,17 @@ if len(sys.argv) > 1:
     rc = csibelia.run([ref, asm, "-o", os.path.join(out, "csibelia")])
     assert rc == 0, rc
     assert os.path.getsize(os.path.join(out, "csibelia", "variant.vcf"))
+    # the exact aligner's device modules, forced on the CPU
+    from sibelia_tpu_torch.kernels import order_device
+    os.environ["SIBELIA_TPU_DEVICE_ORDER"] = "1"
+    os.environ["SIBELIA_TPU_ANCHORS_DEVICE"] = "1"
+    rc = csibelia.run([ref, asm, "-o", os.path.join(out, "csibelia_dev")])
+    assert rc == 0, rc
+    assert order_device.get_stats()["device_jobs"] > 0
+    with open(os.path.join(out, "csibelia", "variant.vcf"), "rb") as h:
+        host = h.read()
+    with open(os.path.join(out, "csibelia_dev", "variant.vcf"), "rb") as h:
+        assert h.read() == host
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 """
 
@@ -60,7 +71,10 @@ def _run_blocked(args, timeout):
 def test_every_module_imports_without_jax():
     r = _run_blocked([], 120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout) >= 40
+    assert int(r.stdout) >= 42
+    for module in ("align.anchors_device", "kernels.order_device"):
+        assert os.path.exists(os.path.join(
+            REPO_ROOT, "sibelia_tpu_torch", *module.split(".")) + ".py")
 
 
 def test_both_clis_run_with_the_jax_package_blocked(tmp_path):
