@@ -7,6 +7,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --kernels        # phases 1-3c only: build and check
     python3 chip_smoke.py --profile DIR    # step breakdown of phase 4 only
     python3 chip_smoke.py --cards          # phase 4c's CLI runs over cards
+    python3 chip_smoke.py --memory         # the card's peak up to the rule
+    python3 chip_smoke.py --parent DIR     # the smoke run, and phase memory
+                                           # times -s loose and phase 4's
+                                           # enumeration at DIR beside it
 
 It imports the port alone: the run fails if ``jax``, ``jaxlib`` or the JAX
 package ``sibelia_tpu`` was imported by the end.  The port builds its CUDA
@@ -114,6 +118,24 @@ Phases, each of which fails the run:
               from its second-last checkpoint, identical; and one untimed
               run under SIBELIA_TPU_PROFILE_DIR, files identical, with the
               card's busy share of its trace's window;
+  5b. memory the card's peak (allocated and reserved, from an emptied
+              allocator) of one single-card enumeration at k = 30 (with
+              min_branch, so the candidate prefilter runs), 100 and 5000 on
+              4, 8 and 16 of the phase 4 strains, the fitted bytes a row
+              and their extrapolation to 2^30 - 1 rows against the card's
+              memory; the same calls with the card filled to leave the
+              size rule's fitted peak (``index/enumeration.py::
+              card_peak_bytes``), each finished with its reserved peak
+              under it; the route the rule picks at 2^30 - 1 rows, and the
+              rule's host route on 4 strains (1 GiB left) equal to the
+              card's enumeration; -s loose on 4 and 8 strains with an 8 GiB
+              slab, each stage's carve, the run's at least the card route's
+              slab; then -s loose on the phase 5 input in a process of its
+              own: wall, slab_reserve, engine_sweep, slab bytes mapped and
+              carved, files equal to phase 5's CPU run.  With ``--parent
+              DIR`` the port of the tree at DIR runs beside it (parent,
+              here, here, parent, twice), and phase 4's enumeration in
+              processes of their own (parent, here, here, parent);
   6. csibelia ``sibelia_tpu_torch.cli.csibelia ref.fasta asm.fasta --maf``
               with the fast aligner and device gap batching
               (``SIBELIA_TPU_ALIGNER=fast SIBELIA_TPU_DEVICE_ALIGN=1``) and
@@ -166,6 +188,14 @@ Phases, each of which fails the run:
               the traceback and the params kernels launched; seconds of
               every run.  Each run's launches are counted from 0 and added
               to the kernels line.
+
+``--memory`` runs phase 1, then the peaks of phase 5b's three k classes on
+16, 32, 64, 128, 135 and 197 strains of 2.1 Mbp (67 M to 827 M rows; the
+last two near 0.95 of where the size rule sends k <= 32 and k > 32 to the
+host), each call the rule keeps on the card finished, with its reserved
+peak under the rule's where that is above 0.9 of what the card gives, and
+their fit; with ``--parent DIR``, -s loose on 32 of those strains (where
+the card route's slab passes 1 GiB), parent, here, here, parent.
 
 ``--profile DIR`` runs phase 1, then times each step of the port's k = 30
 enumeration of the phase 4 input (a synchronise on each side of every
@@ -1601,6 +1631,385 @@ def phase_trim(device, gpu: str) -> dict:
     return table
 
 
+# ----------------------------------------------------------- phase memory --
+
+# the three k classes of the card's enumeration: k <= 32 with the
+# candidate scan (min_branch as the loose preset's first stage sets it),
+# prefix doubling at the loose preset's first and last k > 32
+MEMORY_KS = ((MAIN_K, MAIN_MIN_BRANCH), (ENUM_KS[0], None), (BIG_K, None))
+# --memory: strains of MEMORY_STRAIN bases, up to 128 of them, then near
+# 0.95 of where the size rule turns each class to the host on an empty
+# H100 80GB (597 M rows at k <= 32, 871 M above): 135 and 197 strains
+MEMORY_STRAIN = 2_100_000
+MEMORY_COUNTS = (16, 32, 64, 128, 135, 197)
+# --memory --parent: -s loose on this many of those strains, where the
+# card route's slab (5 B a base a stage) passes 1 GiB
+SLAB_STRAINS = 32
+
+
+@contextlib.contextmanager
+def card_left_with(device, n_bytes: int | None):
+    """Fill the card with one ballast tensor so that ``card_free_bytes``
+    gives `n_bytes` (to its 2 MiB rounding); nothing for None.  Yields the
+    ballast's bytes."""
+    import torch
+    from sibelia_tpu_torch.index.enum_device import card_free_bytes
+    torch.cuda.empty_cache()
+    fill = 0 if n_bytes is None else max(
+        card_free_bytes(device) - n_bytes, 0)
+    ballast = torch.empty(fill, dtype=torch.uint8, device=device)
+    try:
+        yield fill
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+
+
+def card_peak(device, codes, block_starts, n_chr: int, k: int,
+              min_branch, room: int | None = None) -> dict:
+    """One call of the single-card route over a built supergenome, from an
+    emptied allocator (and with the card filled to leave `room` bytes, if
+    given): its peak allocated and peak reserved bytes, seconds and count
+    (None when the card ran out of memory)."""
+    import torch
+    from sibelia_tpu_torch.core.platform import SYNC_COUNTS
+    from sibelia_tpu_torch.index.enum_device import card_free_bytes
+    from sibelia_tpu_torch.index.enumeration import enumerate_on_device
+    torch.cuda.synchronize()
+    with card_left_with(device, room):
+        free = card_free_bytes(device)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        os.environ["SIBELIA_TPU_COUNT_SYNCS"] = "1"
+        SYNC_COUNTS.clear()
+        t0 = time.perf_counter()
+        try:
+            count = enumerate_on_device(codes, block_starts, n_chr, k,
+                                        min_branch, device).count
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            count = None
+        finally:
+            del os.environ["SIBELIA_TPU_COUNT_SYNCS"]
+        out = {"rows": int(codes.shape[0]), "k": k, "count": count,
+               "s": time.perf_counter() - t0, "free": free,
+               # the prefilter's owner ranges, two copies a cut
+               "ranges": SYNC_COUNTS.get("candidate_ranges", 0) // 2 + 1,
+               "allocated": torch.cuda.max_memory_allocated() - base,
+               "reserved": torch.cuda.max_memory_reserved() - base_reserved}
+    return out
+
+
+def log_peak(p: dict, what: str = "") -> None:
+    log(f"  {p['rows']}, k={p['k']}{what}: "
+        + ("out of memory at " if p["count"] is None else "")
+        + f"{p['allocated'] / 1e9:.3f}, {p['reserved'] / 1e9:.3f}, "
+          f"{p['s']:.2f} (count {p['count']}"
+        + (f", {p['ranges']} prefilter ranges)" if p["k"] <= 32 else ")"))
+
+
+def fit_peaks(points: list[dict], key: str) -> tuple[float, float]:
+    """(bytes a row, constant bytes) of a least-squares line through the
+    calls that finished."""
+    done = [p for p in points if p["count"] is not None]
+    if len(done) < 2:
+        return float("nan"), float("nan")
+    a, b = np.polyfit([p["rows"] for p in done], [p[key] for p in done], 1)
+    return float(a), float(b)
+
+
+def memory_table(device, sets, gpu: str) -> dict:
+    """card_peak of every k class on every supergenome of `sets` (a list
+    of strain lists) that the size rule keeps on the card, on the card as
+    it is; prints each call, the fitted lines and their extrapolation to
+    2^30 - 1 rows against the card's memory.  Every call must finish, and
+    where the rule's fitted peak is above 0.9 of what the card gives its
+    reserved peak must be under it."""
+    import torch
+    from sibelia_tpu_torch.index.enum_device import card_free_bytes
+    from sibelia_tpu_torch.index.enumeration import (build_supergenome,
+                                                     card_peak_bytes,
+                                                     host_route)
+    total = torch.cuda.get_device_properties(0).total_memory
+    points: dict[int, list[dict]] = {k: [] for k, _ in MEMORY_KS}
+    log(f"  rows, k: peak allocated GB, peak reserved GB, s ({gpu}; "
+        f"{total / 1e9:.2f} GB on the card)")
+    for strains in sets:
+        codes, block_starts = build_supergenome(strains)
+        for k, min_branch in MEMORY_KS:
+            torch.cuda.empty_cache()
+            why = host_route(codes.shape[0], k, device)
+            if why is not None:
+                log(f"  {codes.shape[0]}, k={k}: the host route ({why})")
+                continue
+            p = card_peak(device, codes, block_starts, len(strains), k,
+                          min_branch)
+            points[k].append(p)
+            rule = card_peak_bytes(p["rows"], k)
+            near = rule > 0.9 * p["free"]
+            log_peak(p, f" (the rule's {rule / 1e9:.3f} of "
+                        f"{p['free'] / 1e9:.3f} GB free)")
+            if p["count"] is None or (near and p["reserved"] > rule):
+                raise RuntimeError(
+                    f"k={k}, {p['rows']} rows, kept on the card by the size "
+                    f"rule ({rule} B of {p['free']} B): reserved "
+                    f"{p['reserved']} B, count {p['count']}")
+        del codes
+    fits = {}
+    top = (1 << 30) - 1
+    for k, _ in MEMORY_KS:
+        fits[k] = {key: fit_peaks(points[k], key)
+                   for key in ("allocated", "reserved")}
+        (a, b), (ra, rb) = fits[k]["allocated"], fits[k]["reserved"]
+        log(f"  k={k}: allocated {a:.2f} B/row + {b / 1e6:.1f} MB, reserved "
+            f"{ra:.2f} B/row + {rb / 1e6:.1f} MB; at {top} rows "
+            f"{(a * top + b) / 1e9:.2f} / {(ra * top + rb) / 1e9:.2f} GB "
+            f"against {total / 1e9:.2f} GB")
+    return {"points": points, "fits": fits}
+
+
+def rule_at_its_budget(device, sets) -> None:
+    """Each k class on each supergenome of `sets` with the card filled to
+    leave the size rule's fitted peak and no more: every call finishes,
+    its reserved peak under the rule's."""
+    from sibelia_tpu_torch.index.enumeration import (build_supergenome,
+                                                     card_peak_bytes)
+    for strains in sets:
+        codes, block_starts = build_supergenome(strains)
+        for k, min_branch in MEMORY_KS:
+            rule = card_peak_bytes(codes.shape[0], k)
+            p = card_peak(device, codes, block_starts, len(strains), k,
+                          min_branch, room=rule)
+            log_peak(p, f" with {p['free'] / 1e9:.3f} GB left, the rule's "
+                        f"{rule / 1e9:.3f}")
+            if p["count"] is None or p["reserved"] > rule:
+                raise RuntimeError(
+                    f"k={k}, {p['rows']} rows at the rule's budget "
+                    f"{rule} B: reserved {p['reserved']} B, count "
+                    f"{p['count']}")
+
+
+# the -s loose CLI in a process of its own, from the tree `root`: a warm-up
+# run on a small input (CUDA, the kernels and native libraries load; no
+# slab below 1 GiB), then the timed run; prints its wall seconds
+CLI_RUN = r"""
+import json, os, sys, time
+root, small, fasta, out, tpath = sys.argv[1:6]
+sys.path.insert(0, root)
+from sibelia_tpu_torch.cli.sibelia import run
+flags = ["-s", "loose", "-m", "5000"]
+assert run(flags + ["-o", out + "_warm", small]) == 0
+os.environ["SIBELIA_TPU_TIMINGS"] = tpath
+t0 = time.perf_counter()
+rc = run(flags + ["-o", out, fasta])
+print(json.dumps({"rc": rc, "wall": time.perf_counter() - t0}))
+"""
+
+
+def slab_runs(device, work: str, fasta: str, small: str, want: str | None,
+              parent: str | None, gpu: str, rounds: int = 2) -> None:
+    """-s loose on `fasta` on `device`, each run a process of its own: the
+    port here, or with a `parent` tree the two in turns (parent, here,
+    here, parent, `rounds` times).  Prints each run's wall, slab_reserve,
+    engine_sweep and slab bytes mapped and carved; every run's files equal
+    `want`'s (or the first run's)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = ([("parent", parent), ("here", here), ("here", here),
+              ("parent", parent)] * rounds if parent else [("here", here)])
+    for i, (what, root) in enumerate(order):
+        out = os.path.join(work, f"slab{i}")
+        tpath = out + ".json"
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("SIBELIA_TPU_")}
+        env["SIBELIA_TPU_TORCH_DEVICE"] = device.type
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_RUN, root, small, fasta, out, tpath],
+            capture_output=True, text=True, env=env, cwd=root, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"-s loose at {root} failed:\n"
+                               + proc.stderr[-3000:])
+        wall = json.loads(proc.stdout.strip().splitlines()[-1])["wall"]
+        want = want or out
+        same_trees(out, want, f"-s loose at {root}")
+        with open(tpath) as h:
+            ph = json.load(h)
+        log(f"  {what} ({root}): wall {wall:.3f} s, slab_reserve "
+            f"{ph.get('slab_reserve', 0):g} s, engine_sweep "
+            f"{ph.get('engine_sweep', 0):g} s, slab "
+            f"{ph.get('slab_bytes', 0) / 1e9:.3f} GB mapped, "
+            f"{ph.get('slab_used', 0) / 1e9:.3f} GB carved; files "
+            f"identical ({gpu})")
+
+
+# -s loose with an 8 GiB slab mapped first, in a process of its own: what
+# each stage's engine carves from it, against the card route's slab size
+CARVE_RUN = r"""
+import json, sys
+root, fasta, out = sys.argv[1:4]
+sys.path.insert(0, root)
+from sibelia_tpu_torch import native
+from sibelia_tpu_torch.blocks import finder
+from sibelia_tpu_torch.cli.sibelia import run
+native.slab_reserve(8 << 30)
+stages, simplify = [], finder.simplify
+def carving(seq, enum, k, *args, **kwargs):
+    before = native.slab_stats()[1]
+    n = int(sum(len(c) for c in enum.chr))
+    ret = simplify(seq, enum, k, *args, **kwargs)
+    stages.append([k, n, native.slab_stats()[1] - before])
+    return ret
+finder.simplify = carving
+assert run(["-s", "loose", "-m", "5000", "-o", out, fasta]) == 0
+print(json.dumps({"stages": stages, "used": native.slab_stats()[1]}))
+"""
+
+
+def carve_runs(device, work: str, sets, gpu: str) -> None:
+    """-s loose on each strain list of `sets` with a slab larger than the
+    run carves (``CARVE_RUN``): each stage's carved bytes and instances,
+    and the run's carve at least the card route's slab (``slab_bytes``
+    before its 1 GiB floor)."""
+    from sibelia_tpu_torch.cli.sibelia import ENGINE_BYTES_A_BASE
+    from sibelia_tpu_torch.core.config import PRESETS
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_stages = len(PRESETS["loose"])
+    for strains in sets:
+        total = sum(len(s) for s in strains)
+        fasta = os.path.join(work, f"carve{len(strains)}.fasta")
+        write_fasta(fasta, strains)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("SIBELIA_TPU_")}
+        env["SIBELIA_TPU_TORCH_DEVICE"] = device.type
+        proc = subprocess.run(
+            [sys.executable, "-c", CARVE_RUN, here, fasta, fasta + "_out"],
+            capture_output=True, text=True, env=env, cwd=here, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError("-s loose with a slab failed:\n"
+                               + proc.stderr[-3000:])
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        floor = n_stages * ENGINE_BYTES_A_BASE * total
+        log(f"  {len(strains)} strains, {total} bases: carved "
+            f"{got['used'] / 1e9:.3f} GB ({got['used'] / total:.1f} B a "
+            f"base), the card route's slab {floor / 1e9:.3f} GB; by stage "
+            "(k, instances, MB, B a base): "
+            + "; ".join(f"{k}, {n}, {c / 1e6:.1f}, {c / total:.1f}"
+                        for k, n, c in got["stages"]) + f" ({gpu})")
+        if got["used"] < floor:
+            raise RuntimeError(f"the run carved {got['used']} B, under the "
+                               f"card route's slab of {floor} B")
+
+
+# the k = 30 enumeration of phase 4 in a process of its own, from the tree
+# `root`: a warm-up call, then three timed calls
+ENUM_RUN = r"""
+import json, sys, time
+root, path = sys.argv[1:3]
+sys.path.insert(0, root)
+import numpy as np, torch
+from sibelia_tpu_torch.index.enumeration import enumerate_bifurcations
+with np.load(path) as z:
+    strains = [z[f"s{i}"] for i in range(len(z.files))]
+device = torch.device("cuda")
+enumerate_bifurcations(strains[:1], 30, 150, device)
+seconds = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = enumerate_bifurcations(strains, 30, 150, device)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+print(json.dumps({"s": seconds, "count": got.count,
+                  "candidates": int(got.candidates.sum())}))
+"""
+
+
+def enum_runs(work: str, strains, parent: str, gpu: str) -> None:
+    """Phase 4's k = 30 enumeration, here and at `parent` in turns (parent,
+    here, here, parent), each a process of its own: three calls' seconds
+    each, the same count and candidates."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(work, "strains.npz")
+    np.savez(path, **{f"s{i}": s for i, s in enumerate(strains)})
+    seen = set()
+    for what, root in (("parent", parent), ("here", here), ("here", here),
+                       ("parent", parent)):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("SIBELIA_TPU_")}
+        proc = subprocess.run([sys.executable, "-c", ENUM_RUN, root, path],
+                              capture_output=True, text=True, env=env,
+                              cwd=root, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the enumeration at {root} failed:\n"
+                               + proc.stderr[-3000:])
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        seen.add((got["count"], got["candidates"]))
+        log(f"  {what} ({root}): k=30 min_branch=150 on "
+            f"{len(strains)} strains, s "
+            + ", ".join(f"{t:.3f}" for t in got["s"]) + f" ({gpu})")
+    if len(seen) != 1:
+        raise RuntimeError(f"the trees' enumerations differ: {seen}")
+
+
+def phase_memory(device, strains, work: str, want: str,
+                 parent: str | None, gpu: str) -> dict:
+    """The card's peak against rows for the three k classes on 4, 8 and 16
+    of the strains, as the card is and with it filled to leave the size
+    rule's fitted peak (``rule_at_its_budget``); the route the rule picks
+    at 2^30 - 1 rows; the rule's host route on the card (filled to leave
+    1 GiB) equal to the card's result; what the engines carve on 4 and 8
+    strains against the card route's slab; then the -s loose runs of
+    ``slab_runs`` and, with a `parent`, phase 4's enumeration beside the
+    parent's.  Returns the launches of the enumerations."""
+    import warnings
+    import torch
+    from sibelia_tpu_torch.core.platform import LAUNCHES, reset_counts
+    from sibelia_tpu_torch.index import enumeration as port_enum
+    reset_counts()
+    sets = [strains[:c] for c in (4, 8, 16)]
+    memory_table(device, sets, gpu)
+    log("  the same with the card filled to leave the rule's fitted peak:")
+    rule_at_its_budget(device, sets)
+    free = port_enum.card_free_bytes(device)
+    top = (1 << 30) - 1
+    for k, _ in MEMORY_KS:
+        log(f"  k={k}: the rule's peak at {top} rows "
+            f"{port_enum.card_peak_bytes(top, k) / 1e9:.2f} GB, the card "
+            f"gives {free / 1e9:.2f} GB: the "
+            f"{'card' if port_enum.fits_on_card(top, k, free) else 'host'}"
+            " route")
+    small = strains[:4]
+    got = port_enum.enumerate_bifurcations(small, MAIN_K, MAIN_MIN_BRANCH,
+                                           device)
+    with warnings.catch_warnings(record=True) as caught, \
+            card_left_with(device, 1 << 30):
+        warnings.simplefilter("always")
+        host = port_enum.enumerate_bifurcations(
+            small, MAIN_K, MAIN_MIN_BRANCH, device)
+    if not any(issubclass(w.category, RuntimeWarning)
+               and "falling back to the host" in str(w.message)
+               for w in caught):
+        raise RuntimeError("the size rule sent no warning with the host route")
+    got.candidates = None
+    same_enumeration(got, host, same_dtypes=False)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches.get("enum_segment_scan", 0) < 19:
+        raise RuntimeError(f"phase memory launched {launches}")
+    log(f"  4 strains, 1 GiB left on the card: the host route, a "
+        f"RuntimeWarning, the card's enumeration; launches {launches}")
+    log("  -s loose with an 8 GiB slab, what the engines carve:")
+    carve_runs(device, work, [strains[:4], strains[:8]], gpu)
+    small_fasta = os.path.join(work, "memory_small.fasta")
+    write_fasta(small_fasta, [s[:300_000] for s in strains[:2]])
+    fasta = os.path.join(work, "strains.fasta")
+    slab_runs(device, work, fasta, small_fasta, want, parent, gpu)
+    if parent:
+        log("  phase 4's enumeration, here and at the parent in turns:")
+        enum_runs(work, strains, parent, gpu)
+    return {"launches": launches}
+
+
 # ---------------------------------------------------------------- phase 5 --
 
 def read_tree(root: str) -> dict[str, bytes]:
@@ -2445,6 +2854,14 @@ def main() -> int:
     ap.add_argument("--cards", action="store_true",
                     help="phase sharded's CLI runs over cards only (d): "
                          "needs two cards or more")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="phase memory also times -s loose and phase 4's "
+                         "enumeration with the port of the tree at DIR (the "
+                         "parent commit); with --memory, -s loose on "
+                         f"{SLAB_STRAINS} strains")
+    ap.add_argument("--memory", action="store_true",
+                    help="the card's peak memory of an enumeration against "
+                         "rows, up to the 2^30-row gate, only")
     args = ap.parse_args()
     t_run = time.perf_counter()
     import torch
@@ -2479,6 +2896,25 @@ def main() -> int:
         for line in nvcc.BUILD_LOG.get(name, "").splitlines():
             log(f"  {name}.cu: {line}")
 
+    if args.memory:
+        t0 = time.perf_counter()
+        strains = make_strains(MEMORY_COUNTS[-1], MEMORY_STRAIN, SEED)
+        log(f"[memory] the card's peak, {MEMORY_COUNTS} strains x "
+            f"{MEMORY_STRAIN} bases (made in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        memory_table(device, [strains[:c] for c in MEMORY_COUNTS], gpu)
+        if args.parent:
+            log(f"[memory] -s loose on {SLAB_STRAINS} of them, here with "
+                f"its arena slab and at {args.parent}")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+                fasta = os.path.join(work, "strains.fasta")
+                write_fasta(fasta, strains[:SLAB_STRAINS])
+                small = os.path.join(work, "small.fasta")
+                write_fasta(small, [s[:300_000] for s in strains[:2]])
+                slab_runs(device, work, fasta, small, None, args.parent,
+                          gpu, rounds=1)
+        log(f"  took {time.perf_counter() - t_run:.1f} s")
+        return 0
     t0 = time.perf_counter()
     strains = make_strains(16, 2_000_000, SEED)
     log(f"[data] 16 strains x 2 Mbp, {time.perf_counter() - t0:.2f} s")
@@ -2542,7 +2978,14 @@ def main() -> int:
         "card vs CPU")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         e2e = phase_e2e(strains[:4], work, gpu)
-    phase_done("e2e")
+        phase_done("e2e")
+        log("[memory] the card's peak against rows for k in "
+            f"{[k for k, _ in MEMORY_KS]}, the size rule, and -s loose with "
+            "its arena slab" + (f" against {args.parent}" if args.parent
+                                else ""))
+        memory = phase_memory(device, strains, work,
+                              os.path.join(work, "cpu"), args.parent, gpu)
+    phase_done("memory")
     del strains
     log("[csibelia] sibelia_tpu_torch.cli.csibelia, fast aligner with device "
         "gap batching, 1.4 Mbp reference vs contigs, card vs CPU")
@@ -2572,6 +3015,7 @@ def main() -> int:
         "source": "sibelia_tpu_torch/kernels/csrc/enum_scan.cu",
         "replaces": "sibelia_tpu/kernels/enum_scan.py:276",
         "launches": (e2e["launches"]["enum_segment_scan"]
+                     + memory["launches"]["enum_segment_scan"]
                      + tools.get("enum_segment_scan", 0)),
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],

@@ -21,8 +21,27 @@ the deterministic rest, and only process 0 writes.
 ``SIBELIA_TPU_NATIVE=0`` turns the native libraries off: the stages run
 the Python engine (``graph/simplify.py``) after the same enumerations on
 the device; ``SIBELIA_TPU_CHECK=1`` runs it too, with the runtime invariant
-check after every collapsing vertex (``blocks/finder.py``).  The native
-arena slab reservation is not made.
+check after every collapsing vertex (``blocks/finder.py``); no arena slab
+is mapped.
+
+Host memory is set up as in the JAX CLI.  External-memory mode: the
+native ranking arenas spill to unlinked files in a directory under ``-t``
+when the estimated in-RAM peak exceeds 3/4 of MemAvailable
+(``SIBELIA_TPU_MEMAVAIL_MB`` sets that budget), or when
+``SIBELIA_TPU_EXTMEM=1`` forces it; ``-r`` keeps them in RAM.  What it
+bounds differs by route.  The port's enumerations run on the device, and
+reach those arenas only on the host route: a supergenome of 2^30 rows or
+more on any device, or one whose fitted peak the card cannot hold
+(``index/enumeration.py::host_route``); the host's trim calls stay below
+the native enumeration's 2^16 rows.  So spill mode bounds the host
+enumeration of those supergenomes and nothing else: the card's memory is
+bounded by that rule, and the engine's arrays and the numpy staging by
+nothing.  In RAM the run keeps what it
+frees (``mallopt``, as the JAX CLI) and maps one populated arena slab
+before the stages (``slab_bytes``: sized by the route, at most 3/4 of the
+same budget shared by the run's processes, none below 1 GiB), from which
+the engine's node and sequence arrays and the ranking arenas carve.  The slab takes the hugetlb pages
+that exist, else plain pages; the pool is never grown.
 
 ``SIBELIA_TPU_TRACE=1`` prints one ``[trace] stage`` line a simplification
 stage to stderr, as the JAX CLI does.  ``SIBELIA_TPU_TIMINGS=<path>`` dumps the per-phase seconds of
@@ -31,6 +50,7 @@ stage to stderr, as the JAX CLI does.  ``SIBELIA_TPU_TIMINGS=<path>`` dumps the 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import sys
@@ -39,7 +59,7 @@ import time
 
 import torch.distributed as dist
 
-from .. import VERSION
+from .. import VERSION, native
 from ..blocks.boundaries import improve_block_boundaries
 from ..blocks.finder import BlockFinder, load_checkpoint, save_checkpoint
 from ..blocks.postprocess import glue_stripes
@@ -48,6 +68,7 @@ from ..core.config import MAX_INPUT_SIZE, PRESETS, read_stage_file
 from ..core.platform import LAUNCHES, SYNC_COUNTS, resolve_device
 from ..core.progress import make_progress_bar
 from ..io import writers
+from ..index.enumeration import host_route, supergenome_rows
 from ..io.fasta import read_fasta
 from ..parallel.runtime import init_distributed
 
@@ -82,6 +103,69 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def mem_available() -> int | None:
+    """The host's memory budget in bytes: SIBELIA_TPU_MEMAVAIL_MB (a small
+    host simulated, or a budget pinned below MemAvailable), else
+    /proc/meminfo's MemAvailable; None when neither reads."""
+    ov = os.environ.get("SIBELIA_TPU_MEMAVAIL_MB")
+    if ov and ov.isdigit():
+        return int(ov) << 20
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def _last_k(args, stage) -> int:
+    if args.lastk is not None:
+        return args.lastk
+    return min(stage[-1][0] if stage else (1 << 31), args.minblocksize)
+
+
+# bytes a base of one stage's engine sequence arrays: its chars (1 B) and
+# origpos (4 B), which engine.cpp::engine_create carves anew every stage
+ENGINE_BYTES_A_BASE = 5
+
+
+def slab_bytes(total: int, n_chr: int, host_route: bool,
+               avail: int | None, n_stages: int = 1, n_procs: int = 1) -> int:
+    """Bytes of the native arena slab for an input of `total` bases in
+    `n_chr` chromosomes.  On the host route (a stage's enumeration in the
+    native ranking arenas) the JAX CLI's size, about 95 B a supergenome
+    row.  Else the least that the run's engines carve: every stage's
+    sequence arrays, ENGINE_BYTES_A_BASE each (a slab's carve is never
+    reused); their node arrays, the growth of their sequence arrays and
+    the 2 MiB alignment of every carve come on top, from the slab while it
+    lasts and from malloc after, so no populated page of it stays
+    unused.  No more than 3/4 of `avail` (the external-memory gate's
+    budget) shared by `n_procs` processes, which may all be on this host;
+    0 below 1 GiB, as in the JAX CLI."""
+    if host_route:
+        want = (2 * (total + n_chr + 1) + 128) * 95 + (64 << 20)
+    else:
+        want = n_stages * ENGINE_BYTES_A_BASE * total
+    if avail is not None:
+        want = min(want, avail * 3 // 4 // max(n_procs, 1))
+    return want if want >= (1 << 30) else 0
+
+
+def _keep_freed_memory() -> None:
+    """glibc keeps what the run frees, as the JAX CLI sets it for in-RAM
+    runs: large blocks from the brk heap (M_MMAP_MAX = 0), never trimmed
+    (M_TRIM_THRESHOLD at its largest), so the engine's and the staging
+    buffers' churn does not fault its pages in again every stage."""
+    try:
+        libc = ctypes.CDLL(None)
+        libc.mallopt(-4, 0)
+        libc.mallopt(-1, 0x7FFFFFFF)
+    except (OSError, AttributeError):
+        pass
+
+
 def _spill_dir(args, stage, total: int) -> str | None:
     """External-memory mode of the host ranking arenas (as in the JAX CLI):
     a spill dir under -t when the estimated in-RAM peak would not fit, or
@@ -89,23 +173,9 @@ def _spill_dir(args, stage, total: int) -> str | None:
     if (args.inram or "SIBELIA_TPU_SPILL_DIR" in os.environ
             or os.environ.get("SIBELIA_TPU_EXTMEM") == "0"):
         return None
-    last_k = args.lastk if args.lastk is not None else \
-        min(stage[-1][0] if stage else (1 << 31), args.minblocksize)
-    any_big_k = any(k > 32 for k, _ in stage) or last_k > 32
+    any_big_k = any(k > 32 for k, _ in stage) or _last_k(args, stage) > 32
     est = total * (120 if any_big_k else 70)
-    avail = None
-    ov = os.environ.get("SIBELIA_TPU_MEMAVAIL_MB")
-    if ov and ov.isdigit():
-        avail = int(ov) << 20
-    else:
-        try:
-            with open("/proc/meminfo") as f:
-                for line in f:
-                    if line.startswith("MemAvailable"):
-                        avail = int(line.split()[1]) * 1024
-                        break
-        except OSError:
-            pass
+    avail = mem_available()
     if (os.environ.get("SIBELIA_TPU_EXTMEM") == "1"
             or (avail is not None and est > avail * 3 // 4)):
         path = tempfile.mkdtemp(prefix="sibelia_spill_", dir=args.tempdir)
@@ -155,6 +225,22 @@ def run(argv: list[str]) -> int:
         if args.graphfile:
             # the -g flows rebuild the index at a k they just enumerated
             os.environ.setdefault("SIBELIA_TPU_FCACHE", "1")
+        if "SIBELIA_TPU_SPILL_DIR" not in os.environ:
+            # in RAM: keep freed memory, and map the slab while the
+            # process is small
+            _keep_freed_memory()
+            # sized on the route of the input's supergenome; each
+            # enumeration decides its own route again when it runs
+            rows = supergenome_rows(total, len(chr_list))
+            ks = {k for k, _ in stage} | {_last_k(args, stage)}
+            slab = slab_bytes(
+                total, len(chr_list),
+                any(host_route(rows, k, device) for k in ks),
+                mem_available(), len(stage),
+                dist.get_world_size() if multiproc else 1)
+            if slab:
+                with timings.phase("slab_reserve"):
+                    native.slab_reserve(slab)
 
         history: list[list] = [[] for _ in range(len(stage) + 1)]
         finder = BlockFinder(chr_list, device)
@@ -261,6 +347,10 @@ def run(argv: list[str]) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     finally:
+        cap, used = native.slab_stats()
+        if cap:
+            timings.add("slab_bytes", cap)
+            timings.add("slab_used", used)
         if multiproc:
             dist.destroy_process_group()
         if prof is not None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.convert import pack_sort_key, unpack_sort_key
+from ..core.platform import note_sync
 from ..kernels.enum_scan import enum_segment_scan
 from .ranking import _pack_plan
 from .ranking_device import kmer_ranks, next_separator, packed_keys
@@ -24,6 +25,24 @@ from .ranking_device import kmer_ranks, next_separator, packed_keys
 # banded self-join width of the candidate prefilter, as in the JAX twin
 # (whose module imports jax, so the value is restated here)
 _CAND_BAND = 48
+# device bytes of one band pair at the prefilter's sort: its owner and
+# member rows, key and end char, and the sort's keys, indices and scratch
+PAIR_BYTES = 80
+# the prefilter's pairs get at least this many bytes a supergenome row,
+# and on a card half of what it can give, before they are sorted by ranges
+# of owner ids (their count grows with the strains: 16 related strains own
+# about 1.9 pairs a row, 150 B)
+PAIR_ROW_BUDGET = 64
+
+
+def card_free_bytes(device: torch.device) -> int | None:
+    """What a card can give an allocation: its free memory and the
+    caching allocator's reserved but unused bytes; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
 
 
 def sorted_columns(codes: torch.Tensor, k: int):
@@ -92,7 +111,20 @@ def candidate_scan(codes: torch.Tensor, pos: torch.Tensor, ids: torch.Tensor,
     [B]) are
     padding; the result is indexed by id.  Owners whose band of
     _CAND_BAND rows overflows are flagged conservatively.  Same bitmap as
-    ``sibelia_tpu/index/enum_device.py::_candidate_scan``."""
+    ``sibelia_tpu/index/enum_device.py::_candidate_scan``.
+
+    Positions ascend, so row i's members are one run of rows, found by
+    three searches, and the (owner id, member id) pairs are laid out from
+    the runs with no pass a band offset.  They are sorted together, at
+    PAIR_BYTES each, when they fit the budget: PAIR_ROW_BUDGET bytes a
+    supergenome row, or on a card half of what ``card_free_bytes`` gives
+    if that is more.  Else the owner ids are cut into ranges of at most
+    the budget's pairs each (plus one owner's band), sorted one after
+    another: a pair's group lies in its owner's range, so the bitmap is
+    the same, and the peak stays within the budget.  Blocking copies: one
+    for the edge owners, one counting the pairs, one for the hits of each
+    range; when cut, two for each cut (``_owner_ranges``) and one for each
+    range's owners, with a pass over the B rows."""
     n = codes.shape[0]
     B = pos.shape[0]
     dev = codes.device
@@ -101,33 +133,83 @@ def candidate_scan(codes: torch.Tensor, pos: torch.Tensor, ids: torch.Tensor,
     row_ok = torch.arange(B, device=dev) < n_sel
     p = torch.where(row_ok, pos.to(i64), n)
     ns = torch.where(row_ok, next_sep[p.clamp(max=n - 1)], 0)
+    del next_sep
     # the end char exists iff the (k+1)-window stays inside its block
     # (reference ProperKMer, src/dnasequence.h:154-165)
     ec = torch.where(row_ok & (p + k < ns),
                      codes[(p + k).clamp(max=n - 1)].to(i64), -1)
     v = torch.where(row_ok, ids.to(i64), B)
-    pairs, pair_ec = [], []
-    overflow = None
-    for o in range(1, _CAND_BAND + 1):
-        if o >= B:
-            break
-        mp = p[o:]
-        gap = mp - p[:-o]
-        ok = (row_ok[o:] & (ec[:-o] >= 0) & (gap >= 1) & (gap < min_branch)
-              & (mp < ns[:-o]))
-        if o == _CAND_BAND:
-            # positions ascend, so an in-window member at the band edge
-            # is the only way unseen pairs can exist beyond it
-            overflow = ok
-        owner = torch.nonzero(ok).squeeze(1)
-        pairs.append((v[owner] << 32) | v[owner + o])
-        pair_ec.append(ec[owner])
+    band = max(min(_CAND_BAND, B - 1), 0)
+    # row i's members: after its position (gap >= 1), less than min_branch
+    # past it, before its next separator, among the real rows, within the
+    # band: the rows first[i] .. end[i] - 1
+    rows_at = torch.arange(B, device=dev)
+    first = torch.maximum(torch.searchsorted(p, p + 1), rows_at + 1)
+    end = torch.minimum(torch.searchsorted(p, p + min_branch),
+                        torch.searchsorted(p, ns)).clamp(max=n_sel)
+    # the band's last member is in reach: owners(_CAND_BAND) of the JAX twin
+    edge = (ec >= 0) & (first <= rows_at + _CAND_BAND) & (
+        rows_at + _CAND_BAND < end)
+    end = torch.minimum(end, rows_at + 1 + band)
+    reach = torch.where(ec >= 0, (end - first).clamp(min=0), 0)
+    del p, ns, row_ok, end, rows_at
     cand = torch.zeros(B, dtype=torch.bool, device=dev)
-    if pairs:
-        key, perm = torch.sort(torch.cat(pairs))
-        kec = torch.cat(pair_ec)[perm]
+    if _CAND_BAND < B:
+        # an in-window member at the band edge is the only way unseen
+        # pairs can exist beyond it
+        cand[v[edge]] = True
+    del edge
+    pair_budget = max(PAIR_ROW_BUDGET * n, (card_free_bytes(dev) or 0) // 2)
+    total = int(reach.sum())
+    note_sync("candidate_pairs")
+    ranges = [(0, B + 1, total)]
+    if PAIR_BYTES * total > pair_budget:
+        ranges = _owner_ranges(v, reach, B, max(pair_budget // PAIR_BYTES, 1))
+    for lo, hi, pairs in ranges:
+        if not pairs:
+            continue
+        mine = reach > 0
+        if len(ranges) > 1:
+            mine &= (v >= lo) & (v < hi)
+        rows = torch.nonzero(mine).squeeze(1)
+        r = reach[rows]
+        # owner and member row of each pair: owner i, members first[i]..
+        owner = torch.repeat_interleave(rows, r, output_size=pairs)
+        member = torch.arange(pairs, device=dev).add_(torch.repeat_interleave(
+            first[rows] - (torch.cumsum(r, 0) - r), r, output_size=pairs))
+        del rows, r
+        key = (v[owner] << 32).bitwise_or_(v[member])
+        del member
+        kec = ec[owner]
+        del owner
+        key, perm = torch.sort(key)
+        kec = kec[perm]
+        del perm
         hit = (key[1:] == key[:-1]) & (kec[1:] != kec[:-1])
         cand[key[1:][hit] >> 32] = True
-    if overflow is not None:
-        cand[v[:B - _CAND_BAND][overflow]] = True
     return cand
+
+
+def _owner_ranges(v: torch.Tensor, reach: torch.Tensor, B: int,
+                  per_range: int) -> list[tuple[int, int, int]]:
+    """Cut the owner ids [0, B] into ranges (lo, hi, pairs) of at most
+    `per_range` band pairs each (an id with more is a range of its own),
+    `reach` pairs owned by each row: one blocking copy for the total, two
+    for each cut."""
+    cum = torch.cumsum(torch.zeros(B + 1, dtype=torch.int64, device=v.device)
+                       .index_add_(0, v, reach), 0)  # pairs up to each id
+    cuts, before, total = [0], 0, int(cum[-1])
+    counts = []
+    while total - before > per_range:
+        # the range ends before the first id that passes the budget
+        hi = max(int(torch.searchsorted(cum, before + per_range,
+                                        right=True)), cuts[-1] + 1)
+        note_sync("candidate_ranges")
+        if hi > B:
+            break
+        cuts.append(hi)
+        counts.append(int(cum[hi - 1]) - before)
+        before += counts[-1]
+    cuts.append(B + 1)
+    counts.append(total - before)
+    return list(zip(cuts[:-1], cuts[1:], counts))

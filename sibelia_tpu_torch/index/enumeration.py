@@ -51,7 +51,8 @@ from ..core import timings
 from ..core.convert import download, to_numpy, to_tensor
 from ..core.platform import note_sync, resolve_device
 from ..parallel.sharded import requested_mesh
-from .enum_device import candidate_scan, fused_enumeration
+from .enum_device import (candidate_scan, card_free_bytes,
+                          fused_enumeration)
 from .ranking import CODE_OF, SEP_CODE, kmer_ranks_numpy
 
 NO_BIFURCATION = (1 << 32) - 1  # reference: BifurcationId(-1), uint32
@@ -100,7 +101,7 @@ def build_supergenome(chromosomes: list[bytes | np.ndarray]
     arrs = [np.frombuffer(c, dtype=np.uint8)
             if isinstance(c, (bytes, bytearray))
             else np.asarray(c, dtype=np.uint8) for c in chromosomes]
-    total = 1 + 2 * sum(len(a) + 1 for a in arrs)
+    total = supergenome_rows(sum(len(a) for a in arrs), len(arrs))
     codes = np.zeros(total, dtype=np.uint8)  # untouched slots = separators
     starts = []
     off = 1
@@ -142,6 +143,52 @@ def _map_selected(sel: np.ndarray, sel_ids: np.ndarray, count: int,
     return BifEnumeration(count, tuple(out_chr), tuple(out_pos), tuple(out_id))
 
 
+# The card's peak bytes of one single-card enumeration: bytes a supergenome
+# row, by k <= 32 (with the candidate prefilter, whose band pairs take half
+# of what the card gives, and at least PAIR_ROW_BUDGET bytes a row) and
+# k > 32 (prefix doubling), and a constant.  Upper envelopes of the peaks
+# the caching allocator reserved on an H100 80GB HBM3 (700 W) for related
+# strains of 2 and 2.1 Mbp (chip_smoke.py phase memory and --memory): k > 32
+# 93.1 B a row at every size to 827 M rows; k <= 32 94 B a row at 16-64 M
+# rows with the card filled to leave this rule's peak, and 119 B a row at
+# 567 M rows (0.95 of this rule's crossover) on an empty card.
+CARD_BYTES_A_ROW = {False: 140, True: 96}
+CARD_BYTES_FIXED = 256 << 20
+
+
+def card_peak_bytes(n_rows: int, k: int) -> int:
+    """The fitted peak of the card's enumeration of `n_rows` rows at k."""
+    return CARD_BYTES_A_ROW[k > 32] * n_rows + CARD_BYTES_FIXED
+
+
+def fits_on_card(n_rows: int, k: int, free_bytes: int) -> bool:
+    """The size rule of the single-card route: its fitted peak for
+    (n_rows, k) within `free_bytes`."""
+    return card_peak_bytes(n_rows, k) <= free_bytes
+
+
+def supergenome_rows(total: int, n_chr: int) -> int:
+    """Rows of the supergenome of `n_chr` chromosomes of `total` bases:
+    both strands, a separator before each chromosome and one at the end."""
+    return 1 + 2 * (total + n_chr)
+
+
+def host_route(n_rows: int, k: int, device: torch.device) -> str | None:
+    """Why a supergenome of `n_rows` rows at k takes the host enumeration
+    on `device`, or None when the single-device route takes it: 2^30 rows
+    or more on any device (the scan keeps (ordinal << 1) keys in int32),
+    or on a card a fitted peak over what ``card_free_bytes`` gives now."""
+    if n_rows >= (1 << 30):
+        return ("supergenome exceeds the single-device enumeration's int32 "
+                "scan space")
+    free = card_free_bytes(device)
+    if free is not None and not fits_on_card(n_rows, k, free):
+        return (f"supergenome of {n_rows} rows needs about "
+                f"{card_peak_bytes(n_rows, k) >> 20} MiB on the device at "
+                f"k = {k}, more than its {free >> 20} MiB")
+    return None
+
+
 def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
                            min_branch: int | None = None,
                            device: torch.device | None = None
@@ -150,7 +197,11 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
     k <= 32, also the bulge-candidate bitmap for the coming sweep
     (``candidates``).  For k > 32 the JAX device path sets none either: the
     engine's stage-start re-prefilter computes it.  chr and pos come back
-    as int64, as from the JAX package's device paths."""
+    as int64, as from the JAX package's device paths.
+
+    A supergenome that ``host_route`` sends to the host (2^30 rows or more,
+    or a fitted peak the card cannot hold) takes the host enumeration
+    before anything is allocated on the device, with a RuntimeWarning."""
     if not chromosomes:
         return _empty_enumeration()
     if device is None:
@@ -159,7 +210,8 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
     if mesh is not None:
         # the sharded route returns before min_branch is read, as the JAX
         # package's does: the engine's re-prefilter makes the bitmap
-        if 1 + 2 * sum(len(c) + 1 for c in chromosomes) >= (1 << 31):
+        if supergenome_rows(sum(len(c) for c in chromosomes),
+                            len(chromosomes)) >= (1 << 31):
             warnings.warn(
                 "supergenome exceeds the sharded pipeline's int32 position "
                 "space; falling back to the host enumeration",
@@ -168,14 +220,21 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
         from ..parallel.sharded_enum import enumerate_bifurcations_sharded
         return enumerate_bifurcations_sharded(chromosomes, k, mesh)
     codes, block_starts = build_supergenome(chromosomes)
-    n = codes.shape[0]
-    if n >= (1 << 30):
-        # the scan keeps (ordinal << 1) keys in int32
-        warnings.warn(
-            "supergenome exceeds the single-device enumeration's int32 "
-            "scan space; falling back to the host enumeration",
-            RuntimeWarning)
+    why = host_route(codes.shape[0], k, device)
+    if why is not None:
+        warnings.warn(why + "; falling back to the host enumeration",
+                      RuntimeWarning)
         return enumerate_bifurcations_host(chromosomes, k)
+    return enumerate_on_device(codes, block_starts, len(chromosomes), k,
+                               min_branch, device)
+
+
+def enumerate_on_device(codes: np.ndarray, block_starts: np.ndarray,
+                        n_chr: int, k: int, min_branch: int | None,
+                        device: torch.device) -> BifEnumeration:
+    """The single-device route of ``enumerate_bifurcations`` over a built
+    supergenome, with no gate."""
+    n = codes.shape[0]
     codes_d = to_tensor(codes, device)
     note_sync("enum_upload")
     pos_d, id_d, n_sel_d, n_groups_d = fused_enumeration(codes_d, k)
@@ -202,7 +261,7 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
         sel[m:] = to_numpy(pos_d[m:ns])
         sel_ids[m:] = to_numpy(id_d[m:ns])
         note_sync("enum_fetch", 2)
-    res = _map_selected(sel, sel_ids, count, block_starts, len(chromosomes))
+    res = _map_selected(sel, sel_ids, count, block_starts, n_chr)
     res.candidates = cand
     return res
 

@@ -11,7 +11,11 @@ that fails raises: there is no Python engine to take its place, and the
 port never loads a library built elsewhere.  The engine runs through
 ``engine_runner.simplify``, which installs the port's device re-prefilter
 (unless ``SIBELIA_TPU_WAVE_DEVICE=0``).
-The arena slab reservation (``rank_slab_reserve``) is not made.
+The ranking library is loaded ``RTLD_GLOBAL`` (and before the engine), so
+that the engine's ``dlsym(RTLD_DEFAULT, "rank_slab_alloc")`` finds the
+arena slab that ``slab_reserve`` maps; its linker version script
+(``ranking.map``) exports the C API alone, so that no other name of it
+takes the place of the engine's or the LAGAN library's own.
 """
 from __future__ import annotations
 
@@ -39,10 +43,12 @@ def _native_off() -> bool:
 
 
 def _build(name: str, flags: list[str], sources: list[str],
-           headers: tuple[str, ...] = ()) -> ctypes.CDLL:
+           headers: tuple[str, ...] = (),
+           mode: int = ctypes.DEFAULT_MODE) -> ctypes.CDLL:
     """Compile BUILD_DIR/<name> from `sources` (file names beside this
     module) when it is missing or older than a source or header, and load
-    it.  Raises RuntimeError when g++ fails or the library does not load."""
+    it with dlopen `mode`.  Raises RuntimeError when g++ fails or the
+    library does not load."""
     so = os.path.join(BUILD_DIR, name)
     srcs = [os.path.join(_DIR, f) for f in sources]
     newest = max(os.path.getmtime(os.path.join(_DIR, f))
@@ -59,7 +65,7 @@ def _build(name: str, flags: list[str], sources: list[str],
             raise RuntimeError(f"cannot run g++ to build {so}: {e}") from e
         os.replace(tmp, so)
     try:
-        return ctypes.CDLL(so)
+        return ctypes.CDLL(so, mode=mode)
     except OSError as e:
         raise RuntimeError(f"cannot load {so}: {e}") from e
 
@@ -72,6 +78,9 @@ def load() -> ctypes.CDLL | None:
     lib = _LIBS.get("engine")
     if lib is not None:
         return lib
+    # the engine caches its dlsym of rank_slab_alloc at its first
+    # allocation: the ranking library must be in the global scope first
+    load_ranking()
     lib = _build("libsibelia_engine.so",
                  ["-O3", "-march=native", "-ffp-contract=off", "-shared",
                   "-fPIC"], ["engine.cpp"])
@@ -154,6 +163,12 @@ def load_lagan() -> ctypes.CDLL | None:
         ctypes.c_char_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int]
+    lib.le_chaos_trans.restype = ctypes.c_void_p
+    lib.le_chaos_trans.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.le_anchors.restype = ctypes.c_void_p
     lib.le_anchors.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.le_order.restype = ctypes.c_void_p
@@ -226,6 +241,22 @@ def lagan_chaos(seq1: bytes, name1: str, seq2: bytes, name2: str,
                        seq2, len(seq2), name2.encode("latin-1"),
                        pairs_text.encode("latin-1"),
                        wl, nd, co, rsc, int(gfc), int(ext))
+    return _take_string(lib, ptr)
+
+
+def lagan_chaos_translated(seq1: bytes, name1: str, seq2: bytes,
+                           name2: str, both: bool = False, wl: int = 4,
+                           nd: int = 1, co: int = 25, rsc: int = 0,
+                           gfc: bool = False, ext: bool = False
+                           ) -> str | None:
+    """6-frame translated chaos (the reference's `chaos -t` / -b; defaults
+    mirror fchaos.c:38-62 after the -t overrides, fchaos.c:652-660)."""
+    lib = load_lagan()
+    if lib is None:
+        return None
+    ptr = lib.le_chaos_trans(seq1, len(seq1), name1.encode("latin-1"),
+                             seq2, len(seq2), name2.encode("latin-1"),
+                             int(both), wl, nd, co, rsc, int(gfc), int(ext))
     return _take_string(lib, ptr)
 
 
@@ -315,7 +346,9 @@ def load_ranking() -> ctypes.CDLL | None:
         return lib
     lib = _build("libsibelia_ranking.so",
                  ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-                  "-pthread"], ["ranking.cpp"])
+                  "-pthread",
+                  "-Wl,--version-script=" + os.path.join(_DIR, "ranking.map")],
+                 ["ranking.cpp"], ("ranking.map",), ctypes.RTLD_GLOBAL)
     lib.kmer_ranks_native.restype = None
     lib.kmer_ranks_native.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -334,8 +367,36 @@ def load_ranking() -> ctypes.CDLL | None:
     lib.enum_fetch32.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_void_p]
+    lib.rank_slab_reserve.restype = None
+    lib.rank_slab_reserve.argtypes = [ctypes.c_int64]
+    lib.rank_slab_stats.restype = None
+    lib.rank_slab_stats.argtypes = [ctypes.POINTER(ctypes.c_int64)] * 2
     _LIBS["ranking"] = lib
     return lib
+
+
+def slab_reserve(n_bytes: int) -> None:
+    """Map and populate the native arena slab of `n_bytes`
+    (``ranking.cpp::rank_slab_reserve``: hugetlb pages where the pool has
+    them, else plain pages), from which the ranking arenas and the engine's
+    node and sequence arrays carve.  Nothing under SIBELIA_TPU_NATIVE=0,
+    in spill mode, or once a slab is mapped; a library that does not build
+    raises, as every loader here does."""
+    lib = load_ranking()
+    if lib is None:
+        return
+    lib.rank_slab_reserve(ctypes.c_int64(n_bytes))
+
+
+def slab_stats() -> tuple[int, int]:
+    """(mapped, carved) bytes of the arena slab; (0, 0) without one or
+    before the ranking library is loaded."""
+    lib = _LIBS.get("ranking")
+    if lib is None:
+        return 0, 0
+    cap, used = ctypes.c_int64(), ctypes.c_int64()
+    lib.rank_slab_stats(ctypes.byref(cap), ctypes.byref(used))
+    return cap.value, used.value
 
 
 def kmer_ranks_native(codes: np.ndarray, k: int):

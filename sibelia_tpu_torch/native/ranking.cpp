@@ -2183,6 +2183,14 @@ int rank_slab_contains(const void* p) {
          (const char*)p < s.base + s.cap;
 }
 
+// The slab's mapped and carved bytes (both 0 when none is mapped).
+void rank_slab_stats(int64_t* cap, int64_t* used) {
+  Slab& s = g_slab();
+  std::lock_guard<std::mutex> g(s.mu);
+  *cap = s.base ? (int64_t)s.cap : 0;
+  *used = s.base ? (int64_t)s.used : 0;
+}
+
 // Reserve the populated arena slab (see Slab above).  Called by the CLI
 // right after reading the input, while process RSS is still small —
 // that is the only window where acquisition runs at the cheap rate.

@@ -12,11 +12,17 @@
     mesh, whose 'chip' axis is 1 wide since a process holds one shard.
     With no group up both are meshes of this process's devices.
 
+A group that ``init_distributed`` started is destroyed at the process's
+exit unless its caller destroyed it first: a gloo process that exits with
+its group up can abort in the group's threads ("terminate called without
+an active exception").
+
 N processes on one machine test it without a cluster: gloo on the CPU
 (tests/test_torch_multihost.py), NCCL on one or more cards.
 """
 from __future__ import annotations
 
+import atexit
 import os
 
 import torch
@@ -54,7 +60,15 @@ def init_distributed(coordinator: str | None = None,
         backend = "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
+    atexit.register(_destroy_at_exit, dist.group.WORLD)
     return True
+
+
+def _destroy_at_exit(group) -> None:
+    """Destroy the default group if it is still the one
+    ``init_distributed`` started; nothing when it is gone already."""
+    if dist.is_initialized() and dist.group.WORLD is group:
+        dist.destroy_process_group()
 
 
 class ProcessGroupMesh(Mesh):

@@ -492,3 +492,20 @@ def test_the_port_builds_its_own_native_libraries():
                  "lagan_chaos.cpp", "lagan_anchors.cpp", "lagan_order.cpp",
                  "lagan_multial.cpp", "lagan_common.h", "lagan_stages.h"):
         assert os.path.getsize(os.path.join(port_dir, name)) > 0, name
+
+
+@pytest.mark.parametrize("gfc", [False, True])
+@pytest.mark.parametrize("both", [False, True])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_chaos_translated_equals_jax(seed, both, gfc):
+    """native.lagan_chaos_translated (the reference's `chaos -t`, with -b
+    and -gfc) on tests/test_lagan_exact.py's codon-structured pairs (seed
+    1's pair gives no hit in either package)."""
+    from tests.test_lagan_exact import _translated_pair
+    sa, sb = _translated_pair(seed)
+    want = J.native.lagan_chaos_translated(sa, "seqA", sb, "seqB",
+                                           both=both, gfc=gfc)
+    got = P.native.lagan_chaos_translated(sa, "seqA", sb, "seqB",
+                                          both=both, gfc=gfc)
+    assert want is not None and got == want
+    assert bool(want) == (seed != 1)
