@@ -8,9 +8,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --profile DIR    # step breakdown of phase 4 only
     python3 chip_smoke.py --cards          # phase 4c's CLI runs over cards
     python3 chip_smoke.py --memory         # the card's peak up to the rule
-    python3 chip_smoke.py --parent DIR     # the smoke run; phase order times
-                                           # DIR's wide band DP and walk,
-                                           # phase tools its draft_assemble,
+    python3 chip_smoke.py --parent DIR     # the smoke run; phases order,
+                                           # anchors and csibelia_exact time
+                                           # DIR's band DP, walks and sweep,
+                                           # phase tools its draft_assemble
+                                           # and sweep,
                                            # phase memory its -s loose and
                                            # phase 4's enumeration, beside
                                            # this tree's
@@ -70,7 +72,9 @@ Phases, each of which fails the run:
               equal to native ``lagan_order`` on every pair and on two 200
               kbp pairs (wmax 32), whose band DP (us a diagonal) and
               traceback are timed apart (no plain DP there: it costs a
-              Python step a diagonal);
+              Python step a diagonal), the narrow walk also in segments of
+              256 to 2048 rows and, with ``--parent DIR``, beside DIR's
+              walk in turns, moves equal, with the longest walk's steps;
               kernel and plain times, bounds and bytes of every case; the
               wide forms on bands the size of the matrix (no anchor, as a
               draft contig's wrong strand) at wmax 64 to 8192 and eight
@@ -86,7 +90,9 @@ Phases, each of which fails the run:
               ``anchors_text_device`` on the card equal to native
               ``lagan_anchors`` on real chaos hits; times of the kernels
               (n = 13 also replayed from a CUDA graph), the plain version
-              and the native sweep on the same set, and the bound;
+              and the native sweep on the same set, and the bound; the
+              block form timed at n in {33, 60, 256, 1000, 24,001}, with
+              ``--parent DIR`` beside DIR's in turns, every output equal;
   4. enum     enumeration at k = 30, min_branch = 150 of 16 synthetic
               strains x 2 Mbp (about 64 M supergenome rows): the port on the
               card against the port on the CPU (plain versions), every
@@ -181,9 +187,10 @@ Phases, each of which fails the run:
               kernels again on what the run gave them: the band DP, the
               traceback and the params on its largest batch (timed, moves
               and params against their plain versions; the batch's longest
-              pair alone beside it) and the band DP
-              against the plain version on that batch's pairs of at most
-              6,000 diagonals; the sweep on the level with the most hits
+              pair alone beside it; its narrow walk in segments of 256 to
+              2048 rows and, with ``--parent DIR``, beside DIR's) and the
+              band DP against the plain version on that batch's pairs of at
+              most 6,000 diagonals; the sweep on the level with the most hits
               against the plain version, with the native sweep's time
               beside it;
   8. tools    the modules no port CLI reached before: (a) the -s loose CLI
@@ -201,10 +208,14 @@ Phases, each of which fails the run:
               the traceback and the params kernels launched; seconds of
               every run; for (c), (d), (e) the exact aligner's phases card /
               CPU, every band DP's (nd, wmax), the launches of the warp and
-              the wide forms and the sweep's sets by hits; with ``--parent
+              the wide forms and the sweep's sets by hits; (e)'s sweep
+              calls (a recursion level's sets each) timed; with ``--parent
               DIR``, (c) also in processes of its own, parent, here, here,
-              parent.  Each run's launches are counted from 0 and added to
-              the kernels line.
+              parent, and (e)'s sweep calls beside DIR's sweep.  Each run's
+              launches are counted from 0 and added to the kernels line
+              (the narrow walk's three kernels count as one launch of
+              ``order_moves``, as the wide band DP's two of
+              ``order_band``).
 
 ``--memory`` runs phase 1, then the peaks of phase 5b's three k classes on
 16, 32, 64, 128, 135 and 197 strains of 2.1 Mbp (67 M to 827 M rows; the
@@ -913,7 +924,7 @@ def compare_moves(name: str, args, table, rows, device, gpu: str,
     bound, bound_by = bound_ms(16 * steps + 4 * table.shape[0], 20 * steps)
     log(f"  {name}, traceback: {steps} moves of {table.shape[0]} pairs "
         f"(the longest {int(want_counts.max())}): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.0f} ms, bound {bound:.5f} ms by {bound_by}, max |diff| "
+        f"{plain_ms:.0f} ms, bound {bound:.3g} ms by {bound_by}, max |diff| "
         f"{err} ({gpu})")
     if err:
         raise RuntimeError(f"traceback kernel disagrees with plain: {name}")
@@ -939,7 +950,7 @@ def compare_params(name: str, args, table, band, device, gpu: str,
               int((got - args[1][:n]).abs().max()))
     bound, bound_by = bound_ms(48 * n + 12 * table.shape[0], 30 * n)
     log(f"  {name}, params on the card: {n} diagonals: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {bound:.5f} ms by {bound_by}, max "
+        f"plain {plain_ms:.1f} ms, bound {bound:.3g} ms by {bound_by}, max "
         f"|diff| to plain and to the host's {err} ({gpu})")
     if err:
         raise RuntimeError(f"params kernel disagrees: {name}")
@@ -1035,14 +1046,14 @@ def parent_rows(lib, args, table):
     sm = torch.from_numpy(od._SM.reshape(-1).copy()).to(dev)
     out = torch.empty(od.rows_bytes(table), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for wmax, pairs, tab in od._classes(table, dev):
+    for wmax, sel, tab in od._classes(table, dev):
         words = []
         if lib.takes_words:
             buf, base = od.class_words(table, wmax, dev)
             words = [None if buf is None else buf.data_ptr(), base]
         err = lib.order_band_launch(
             args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-            tab.data_ptr(), sm.data_ptr(), pairs, wmax, od.GAP_START,
+            tab.data_ptr(), sm.data_ptr(), len(sel), wmax, od.GAP_START,
             od.GAP_CONT, int(od.DUMMY), od._CB_CODE, out.data_ptr(), *words,
             stream)
         if err:
@@ -1058,10 +1069,10 @@ def parent_moves(lib, args, table, rows):
     moves = torch.empty(od.moves_bytes(table), dtype=torch.uint8, device=dev)
     counts = torch.empty(table.shape[0], dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for wmax, pairs, tab in od._classes(table, dev):
+    for wmax, sel, tab in od._classes(table, dev):
         err = lib.order_moves_launch(
             args[0].data_ptr(), args[1].data_ptr(), tab.data_ptr(),
-            rows.data_ptr(), pairs, wmax, moves.data_ptr(),
+            rows.data_ptr(), len(sel), wmax, moves.data_ptr(),
             counts.data_ptr(), stream)
         if err:
             raise RuntimeError(f"the parent's order_moves_launch: error {err}")
@@ -1079,15 +1090,186 @@ def in_turns(device, here, parent, reps: int) -> dict:
     return runs
 
 
-def wide_times(device, gpu: str, parent: str | None, reps: int = 3) -> None:
+# segment sizes of the narrow walk timed beside the default
+WALK_SEGMENT_CHOICES = (256, 512, 1024, 2048)
+# a shared-memory round trip, the least a dependent step can take, in
+# cycles at the card's 1.98 GHz
+ROUND_TRIP_CYCLES, CLOCK_HZ = 30, 1.98e9
+
+
+def chain_floor_ms(steps: int) -> float:
+    """The least time of `steps` dependent steps of one shared-memory round
+    trip each: what a serial walk or sweep could reach at best."""
+    return steps * ROUND_TRIP_CYCLES / CLOCK_HZ * 1e3
+
+
+def narrow_walk_times(name: str, args, table, device, gpu: str, lib,
+                      reps: int = 3) -> None:
+    """The narrow walk on one batch's own pointer rows: this tree's at its
+    segment size and, with the parent's library `lib`, the parent's in
+    turns (parent, here, here, parent), moves equal; then each of
+    WALK_SEGMENT_CHOICES once, and the three kernels of the default size
+    alone (CUDA events around each, `reps` calls).  Logs the longest
+    walk's steps and the serial walk's chain floor."""
+    from sibelia_tpu_torch.kernels import order_device as od
+    rows = od.band_rows(*args, table)
+    walk = lambda: od.band_moves(args[0], args[1], table, rows)
+    runs = in_turns(device, walk,
+                    (lambda: parent_moves(lib, args, table, rows)) if lib
+                    else None, reps)
+    err = same_moves(table, walk(), parent_moves(lib, args, table, rows)
+                     ) if lib else 0
+    if err:
+        raise RuntimeError(f"{name}: the walk differs from the parent's")
+    steps = int(walk()[1].max())
+    sizes, default = {}, od.WALK_SEGMENT_ROWS
+    try:
+        for s in WALK_SEGMENT_CHOICES:
+            od.WALK_SEGMENT_ROWS = s
+            sizes[s] = timed(walk, device, reps, 0.2)[0]
+    finally:
+        od.WALK_SEGMENT_ROWS = default
+    split = np.zeros((reps, 3), np.float32)
+    for rep in range(reps):
+        od.band_moves(args[0], args[1], table, rows, split_ms=split[rep])
+    log(f"  {name}, the narrow walk's kernels at {default}-row segments, ms "
+        "(predicted tables 0.5-1.5, composition 0.1-0.3, replay 0.05-0.3 "
+        "for the exact run's batch): " + ", ".join(
+            f"{what} {split[:, i].min():.4f}-{split[:, i].max():.4f}"
+            for i, what in enumerate(("k_walk_tables", "k_walk_compose",
+                                      "k_walk_replay"))) + f" ({gpu})")
+    log(f"  {name}, the narrow walk: {table.shape[0]} pairs, "
+        f"{int(table[:, od.T_DIAGS].sum())} rows, the longest walk {steps} "
+        "steps (a serial walk's chain floor "
+        f"{chain_floor_ms(steps):.3f} ms); "
+        + "; ".join(f"{who} " + ", ".join(f"{ms:.3f}" for ms in runs[who])
+                    + " ms" for who in runs)
+        + "; segments of " + ", ".join(f"{s} rows {ms:.3f}"
+                                        for s, ms in sizes.items())
+        + " ms; " + (f"max |diff| to the parent {err}" if lib
+                     else "not compared with a parent") + f" ({gpu})")
+
+
+def parent_anchors_lib(parent: str):
+    """The sweep library of the tree at `parent`, built here with this
+    tree's nvcc flags into a temp directory (ctypes; the block form with a
+    byte of scratch a hit, as before this tree, or with the staircase's
+    scratch)."""
+    import ctypes
+    from sibelia_tpu_torch.kernels import nvcc
+    out = os.path.join(tempfile.mkdtemp(prefix="parent_anchors_"),
+                       "libanchors_sweep_parent.so")
+    nvcc.build(os.path.join(parent, "sibelia_tpu_torch", "kernels", "csrc",
+                            "anchors_sweep.cu"), out)
+    lib = ctypes.CDLL(out)
+    void_p, c_int = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, "anchors_sweep_scratch_bytes"):
+        lib.anchors_sweep_scratch_bytes.restype = ctypes.c_longlong
+        lib.anchors_sweep_scratch_bytes.argtypes = [ctypes.c_longlong, c_int]
+    lib.anchors_sweep_launch.restype = c_int
+    lib.anchors_sweep_launch.argtypes = ([void_p] * 6 + [c_int] * 3
+                                         + [void_p] * 6)
+    lib.anchors_sweep_warp_launch.restype = c_int
+    lib.anchors_sweep_warp_launch.argtypes = ([void_p] * 6 + [c_int]
+                                              + [void_p] * 5)
+    return lib
+
+
+def sweep_launcher(lib, args, offsets):
+    """A function that launches the sweep kernels of `lib` (this tree's or
+    a parent's) on the packed sets, its outputs and scratch made once:
+    timed back to back, the kernels' device time without the wrapper's
+    host work.  Returns (launch, outputs)."""
+    import torch
+    from sibelia_tpu_torch.align import anchors_device as ad
+    dev = args[0].device
+    N, S = args[0].shape[0], len(offsets) - 1
+    sizes = np.diff(offsets)
+    small = np.flatnonzero(sizes <= ad.WARP_HITS)
+    large = np.flatnonzero(sizes > ad.WARP_HITS)
+    order = np.concatenate([small, large])
+    spans = torch.from_numpy(np.stack(
+        [offsets[order], offsets[order + 1], order], axis=1)).to(dev)
+    outs = [torch.empty(n, dtype=dt, device=dev) for n, dt in (
+        (N, torch.float32), (N, torch.int32), (S, torch.int32),
+        (S, torch.float32))]
+    ins = [t.data_ptr() for t in args]
+    ptrs = [t.data_ptr() for t in outs]
+    staircase = hasattr(lib, "anchors_sweep_scratch_bytes")
+    scratch = torch.empty(
+        lib.anchors_sweep_scratch_bytes(N, large.size) if staircase else N,
+        dtype=torch.uint8, device=dev)
+
+    def launch():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        errs = []
+        if small.size:
+            errs.append(lib.anchors_sweep_warp_launch(
+                *ins, spans.data_ptr(), small.size, *ptrs, stream))
+        if large.size:
+            head = [*ins, spans.data_ptr() + 24 * small.size, large.size,
+                    int(sizes[large].max()), ad.SHARED_HITS]
+            tail = ([scratch.data_ptr(), *ptrs] if staircase
+                    else [*ptrs, scratch.data_ptr()])
+            errs.append(lib.anchors_sweep_launch(*head, *tail, stream))
+        if any(errs):
+            raise RuntimeError(f"sweep launches: errors {errs}")
+
+    return launch, outs
+
+
+def parent_sweep(lib, args, offsets):
+    """sweep_packed through the parent's library."""
+    launch, outs = sweep_launcher(lib, args, offsets)
+    launch()
+    return tuple(outs)
+
+
+def sweep_times(name: str, args, offsets, device, gpu: str, lib,
+                reps: int = 3) -> None:
+    """The sweep on one packed list of sets: this tree's and, with the
+    parent's library `lib`, the parent's in turns (parent, here, here,
+    parent), every output bit-equal.  Logs the bound and the chain floor
+    of the largest set's 2n events."""
+    import torch
+    from sibelia_tpu_torch.align import anchors_device as ad
+    here = lambda: ad.sweep_packed(*args, offsets)
+    runs = in_turns(device, here,
+                    (lambda: parent_sweep(lib, args, offsets)) if lib
+                    else None, reps)
+    if lib and not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(here(), parent_sweep(lib, args,
+                                                            offsets))):
+        raise RuntimeError(f"{name}: the sweep differs from the parent's")
+    # device time of the launches alone, back to back
+    device = {}
+    many = 10 if int(np.diff(offsets).max()) < 10_000 else 3
+    for who, source in (("here", ad.build()), ("parent", lib)):
+        if source is not None:
+            device[who] = timed(sweep_launcher(source, args, offsets)[0],
+                                args[0].device, many, 0.2)[0]
+    sizes = np.diff(offsets)
+    bound, bound_by = sweep_bound_ms(offsets)
+    log(f"  {name}, timed: {len(sizes)} sets of {int(sizes.min())}-"
+        f"{int(sizes.max())} hits; wrapper calls " + "; ".join(
+            f"{who} " + ", ".join(f"{ms:.4f}" for ms in runs[who]) + " ms"
+            for who in runs)
+        + "; launches alone, back to back " + ", ".join(
+            f"{who} {ms:.4f} ms" for who, ms in device.items())
+        + f"; bound {bound:.3g} ms by {bound_by}, chain floor "
+        f"{chain_floor_ms(2 * int(sizes.max())):.4f} ms; outputs "
+        + ("equal to the parent's" if lib else "not compared") + f" ({gpu})")
+
+
+def wide_times(device, gpu: str, lib, reps: int = 3) -> None:
     """The wide band DP (us a diagonal) and the wide walk (us a step) on
     bands the size of the matrix at each wmax of WIDE_TIMES, and a launch
-    of WIDE_SIDE_BY_SIDE such pairs of wmax 4096; with `parent`, the
-    parent's forms on the same inputs in the same call, in turns, pointer
-    bytes inside the band and moves equal (raises if not)."""
+    of WIDE_SIDE_BY_SIDE such pairs of wmax 4096; with the parent's
+    library `lib`, the parent's forms on the same inputs in the same call,
+    in turns, pointer bytes inside the band and moves equal (raises if
+    not)."""
     import torch
     from sibelia_tpu_torch.kernels import order_device as od
-    lib = parent_order_lib(parent) if parent else None
     rng = np.random.default_rng(SEED + 9)
     cases = []
     for wmax in WIDE_TIMES:
@@ -1211,11 +1393,13 @@ def phase_order(device, gpu: str, parent: str | None = None) -> dict:
     # pair of the exact run)
     long = order_jobs([related_pair(rng, 200_000),
                        related_pair(rng2, 200_000)])
+    lib = parent_order_lib(parent) if parent else None
     for job in long:
         args, table, band = pack_order_jobs([job], device)
-        res = worst(res, compare_order(
-            f"a 200 kbp pair of wmax {int(table[0, od.T_WMAX])}", args,
-            table, device, gpu, plain=False, band=band))
+        name = f"a 200 kbp pair of wmax {int(table[0, od.T_WMAX])}"
+        res = worst(res, compare_order(name, args, table, device, gpu,
+                                       plain=False, band=band))
+        narrow_walk_times(name, args, table, device, gpu, lib)
     jobs = every + long
     got = od.order_mfa_device_batch(jobs, device)
     for job, text in zip(jobs, got):
@@ -1228,7 +1412,7 @@ def phase_order(device, gpu: str, parent: str | None = None) -> dict:
     log("  the wide forms on bands the size of the matrix"
         + (f", beside the parent's at {parent} (parent, here, here, parent)"
            if parent else ""))
-    wide_times(device, gpu, parent)
+    wide_times(device, gpu, lib)
     res["jobs"], res["texts"] = jobs, got
     return res
 
@@ -1262,13 +1446,14 @@ def pack_hit_sets(sets, device):
 
 
 def sweep_bound_ms(offsets) -> tuple[float, str]:
-    """2n events of n lanes, about 6 operations a lane (two compares of
-    the key, the alive test, three of the running maximum); read: a_s,
-    a_e, score and the two event columns, 28 B a hit; written: sofar and
-    bk, 8 B a hit."""
+    """Read: a_s, a_e, score and the two event columns, 28 B a hit;
+    written: sofar and bk, 8 B a hit, best and best_val, 8 B a set.  The
+    function's least work: the hits ranked, n log2 n compares, then about
+    4 operations an event (the key's predecessor, the chain's sum, the
+    kill's compare, the running maximum)."""
     n = np.diff(offsets).astype(np.float64)
     return bound_ms(36 * float(n.sum()) + 8 * len(n),
-                    float((2 * n * n * 6).sum()))
+                    float((n * np.log2(np.maximum(n, 2)) + 8 * n).sum()))
 
 
 def compare_sweep(name: str, args, offsets, device, gpu: str,
@@ -1294,7 +1479,7 @@ def compare_sweep(name: str, args, offsets, device, gpu: str,
     sizes = np.diff(offsets)
     log(f"  {name}: {len(sizes)} sets of {int(sizes.min())}-"
         f"{int(sizes.max())} hits: kernel {ms:.3f} ms, plain {plain_ms:.0f} "
-        f"ms, bound {bound:.5f} ms by {bound_by}, max |diff| {err:g} ({gpu})")
+        f"ms, bound {bound:.3g} ms by {bound_by}, max |diff| {err:g} ({gpu})")
     if err:
         raise RuntimeError(f"sweep kernel disagrees with plain: {name}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1353,7 +1538,7 @@ def sweep_graph_ms(args, offsets) -> float:
     return timed_graph(launch)
 
 
-def phase_anchors(device, gpu: str) -> dict:
+def phase_anchors(device, gpu: str, parent: str | None = None) -> dict:
     from sibelia_tpu_torch.align.anchors_device import SHARED_HITS, WARP_HITS
     from sibelia_tpu_torch.native import lagan_chaos
     rng = np.random.default_rng(SEED)
@@ -1381,10 +1566,19 @@ def phase_anchors(device, gpu: str) -> dict:
         f"{sweep_graph_ms(*pack_hit_sets([sets[3]], device)):.4f} ms ({gpu})")
     ref = compare_sweep("n = 1000", *pack_hit_sets(
         [hit_set(rng, 1000)], device), device, gpu)
-    big = compare_sweep(
-        f"n = {SHARED_HITS + 1} (in device memory)",
-        *pack_hit_sets([hit_set(rng, SHARED_HITS + 1)], device), device, gpu,
-        1)
+    big_set = hit_set(rng, SHARED_HITS + 1)
+    big = compare_sweep(f"n = {SHARED_HITS + 1} (in device memory)",
+                        *pack_hit_sets([big_set], device), device, gpu, 1)
+    # the block form at each size, beside the parent's
+    rng4 = np.random.default_rng(SEED + 10)
+    lib = parent_anchors_lib(parent) if parent else None
+    timing = [(n, hit_set(rng4, n)) for n in (33, 60, 256, 1000)]
+    timing += [(SHARED_HITS + 1, big_set)]
+    for n, s in timing:
+        if n == 256:
+            err = max(err, compare_sweep("n = 256", *pack_hit_sets(
+                [s], device), device, gpu, 1)["max_abs_err"])
+        sweep_times(f"n = {n}", *pack_hit_sets([s], device), device, gpu, lib)
     a, b = related_pair(rng, 50_000)
     hits = lagan_chaos(a, "x", b, "y",
                        f"-s1 1 {len(a)} -s2 1 {len(b)}\n", 12, 0, 25, 0,
@@ -2511,10 +2705,11 @@ def log_classes(what: str, values, edges) -> None:
 
 
 def phase_csibelia_exact(device, work: str, gpu: str, ref: str,
-                         asm: str) -> dict:
+                         asm: str, parent: str | None = None) -> dict:
     """The default mode of C-Sibelia on the card against the same CLI on
     the CPU (native anchors and order stages); then the exact aligner's
-    kernels again on what the run gave them."""
+    kernels again on what the run gave them, the walk of its largest batch
+    also beside the parent's (`parent`)."""
     import torch
     from sibelia_tpu_torch.align import anchors_device as ad
     from sibelia_tpu_torch.align.lagan_exact import RECURSION_LEVELS
@@ -2643,6 +2838,8 @@ def phase_csibelia_exact(device, work: str, gpu: str, ref: str,
     args, table = batches[at]
     whole = compare_order("the run's largest batch", args, table, device,
                           gpu, plain=False, band=bands[at], warm_s=0.5)
+    narrow_walk_times("the run's largest batch", args, table, device, gpu,
+                      parent_order_lib(parent) if parent else None)
     alone = od.sub_table(table, np.array([int(table[:, od.T_DIAGS]
                                               .argmax())]))
     ms, _ = timed(lambda: od.band_rows(*args, alone), device, 3)
@@ -2813,7 +3010,8 @@ def card_and_cpu(fn, what: str, gpu: str, total: dict):
     the results are equal or a band DP fell back to the host on the card.
     Returns (result, launches, band DPs on the card, card s, CPU s, record):
     the record holds each side's exact-aligner phases (``card``, ``cpu``),
-    the table of every band_rows call on the card (``tables``) and the hits
+    the table of every band_rows call on the card (``tables``), the
+    arguments of every sweep_packed call there (``sweeps``) and the hits
     of every sweep set there (``hits``)."""
     import torch
     from sibelia_tpu_torch.align import anchors_device as ad
@@ -2821,24 +3019,28 @@ def card_and_cpu(fn, what: str, gpu: str, total: dict):
     from sibelia_tpu_torch.core.platform import LAUNCHES, reset_counts
     from sibelia_tpu_torch.kernels import order_device as od
     jobs0, fallback0 = exact_stats()
-    rec = {"tables": []}
-    real = od.band_rows
+    rec = {"tables": [], "sweeps": []}
+    real = od.band_rows, ad.sweep_packed
 
     def recording(*args):
         rec["tables"].append(args[3])
-        return real(*args)
+        return real[0](*args)
+
+    def recording_sweep(*args):
+        rec["sweeps"].append(args)
+        return real[1](*args)
 
     reset_counts()
     timings.reset()
     hits0 = len(ad.HITS_PER_SWEEP)
-    od.band_rows = recording
+    od.band_rows, ad.sweep_packed = recording, recording_sweep
     try:
         t0 = time.perf_counter()
         got = fn(torch.device("cuda"))
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
     finally:
-        od.band_rows = real
+        od.band_rows, ad.sweep_packed = real
     rec["hits"] = ad.HITS_PER_SWEEP[hits0:]
     rec["card"] = timings.snapshot()
     launches = dict(LAUNCHES)
@@ -2882,65 +3084,77 @@ def log_exact_record(what: str, rec: dict) -> None:
                 [0, 1, 4, 16, 32, 64, 256, 1024, 4096, 1 << 20])
 
 
-# (c)'s draft_assemble on the card in a process of its own, from the tree
-# `root`: a warm-up call, then two timed calls, with the exact aligner's
-# phases and the launches of the last
-DRAFT_RUN = r"""
-import json, sys, time
-root, finished, contigs = sys.argv[1:4]
+# (c)'s draft_assemble or (d)'s slagan_pairwise on the card in a process of
+# its own, from the tree `root`: a warm-up call, then two timed calls, with
+# the exact aligner's phases and the launches of the last, and a digest of
+# what it returned
+TREE_RUN = r"""
+import hashlib, json, sys, time
+root, tool, first, second = sys.argv[1:5]
 sys.path.insert(0, root)
 import torch
-from sibelia_tpu_torch.align.draft import draft_assemble
 from sibelia_tpu_torch.core import timings
 from sibelia_tpu_torch.core.platform import LAUNCHES, reset_counts
-with open(finished) as h, open(contigs) as g:
-    finished, contigs = h.read(), g.read()
+with open(first, "rb") as h, open(second, "rb") as g:
+    first, second = h.read(), g.read()
 device = torch.device("cuda")
-draft_assemble(finished, contigs, device=device)
+if tool == "draft":
+    from sibelia_tpu_torch.align.draft import draft_assemble
+    call = lambda: draft_assemble(first.decode(), second.decode(),
+                                  device=device)["merged"]
+else:
+    from sibelia_tpu_torch.align.glocal import slagan_pairwise
+    call = lambda: slagan_pairwise(first, "strainA", second, "strainB",
+                                   device=device)
+call()
 seconds = []
 for _ in range(2):
     reset_counts()
     timings.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = draft_assemble(finished, contigs, device=device)
+    got = call()
     torch.cuda.synchronize()
     seconds.append(time.perf_counter() - t0)
 print(json.dumps({"s": seconds, "phases": timings.snapshot(),
-                  "launches": dict(LAUNCHES), "merged": got["merged"]}))
+                  "launches": dict(LAUNCHES),
+                  "digest": hashlib.sha256(repr(got).encode()).hexdigest()}))
 """
 
 
-def draft_runs(parent: str, gpu: str) -> None:
-    """(c)'s draft_assemble here and at `parent` in turns (parent, here,
-    here, parent), each a process of its own: two calls' seconds, the
-    exact aligner's phases and launches; the same merged text."""
+def tree_runs(tool: str, parent: str, gpu: str) -> None:
+    """(c)'s draft_assemble (`tool` "draft") or (d)'s slagan_pairwise
+    ("slagan") here and at `parent` in turns (parent, here, here, parent),
+    each a process of its own: two calls' seconds, the exact aligner's
+    phases and launches; the same result."""
     here = os.path.dirname(os.path.abspath(__file__))
+    what = {"draft": "(c)", "slagan": "(d)"}[tool]
     seen = set()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_draft_") as work:
-        paths = [os.path.join(work, name) for name in ("finished", "contigs")]
-        for path, text in zip(paths, draft_input()):
-            with open(path, "w") as h:
-                h.write(text)
-        for what, root in (("parent", parent), ("here", here),
-                           ("here", here), ("parent", parent)):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as work:
+        paths = [os.path.join(work, name) for name in ("first", "second")]
+        texts = draft_input() if tool == "draft" else slagan_input()
+        for path, text in zip(paths, texts):
+            with open(path, "wb") as h:
+                h.write(text.encode() if isinstance(text, str) else text)
+        for who, root in (("parent", parent), ("here", here),
+                          ("here", here), ("parent", parent)):
             env = {k: v for k, v in os.environ.items()
                    if not k.startswith("SIBELIA_TPU_")}
-            proc = subprocess.run([sys.executable, "-c", DRAFT_RUN, root,
+            proc = subprocess.run([sys.executable, "-c", TREE_RUN, root, tool,
                                    *paths], capture_output=True, text=True,
                                   env=env, cwd=root, timeout=600)
             if proc.returncode != 0:
-                raise RuntimeError(f"draft_assemble at {root} failed:\n"
+                raise RuntimeError(f"{what} at {root} failed:\n"
                                    + proc.stderr[-3000:])
             got = json.loads(proc.stdout.strip().splitlines()[-1])
-            seen.add(got["merged"])
-            log(f"  (c) {what} ({root}): s " + ", ".join(
+            seen.add(got["digest"])
+            log(f"  {what} {who} ({root}): s " + ", ".join(
                 f"{t:.3f}" for t in got["s"]) + "; " + ", ".join(
                 f"{name} {got['phases'].get(name, 0)}"
                 for name in EXACT_PHASES) + f"; launches {got['launches']} "
                 f"({gpu})")
     if len(seen) != 1:
-        raise RuntimeError("the trees' draft_assemble texts differ")
+        raise RuntimeError(f"the trees' {what} results differ")
 
 
 def tools_draft(gpu: str, total: dict) -> None:
@@ -3004,8 +3218,12 @@ def tools_slagan(gpu: str, total: dict) -> None:
     log_exact_record("(d)", rec)
 
 
-def tools_prolagan(gpu: str, total: dict) -> None:
-    """(e) prolagan_fasta on two profiles of two 20 kbp sequences."""
+def tools_prolagan(gpu: str, total: dict, parent: str | None = None
+                   ) -> None:
+    """(e) prolagan_fasta on two profiles of two 20 kbp sequences; then
+    each of its sweep calls (a recursion level's sets) timed, beside the
+    parent's (`parent`)."""
+    import torch
     from sibelia_tpu_torch.align.lagan_exact import RECURSION_LEVELS
     from sibelia_tpu_torch.align.mlagan_exact import align_multiple_exact
     from sibelia_tpu_torch.align.prolagan import prolagan_fasta
@@ -3026,21 +3244,26 @@ def tools_prolagan(gpu: str, total: dict) -> None:
         f"launches for the 4 pairs' {len(RECURSION_LEVELS)} levels; card "
         f"{t_card:.3f} s, CPU {t_cpu:.3f} s ({gpu})")
     log_exact_record("(e)", rec)
+    lib = parent_anchors_lib(parent) if parent else None
+    for level, args in enumerate(rec["sweeps"]):
+        sweep_times(f"(e) sweep call {level + 1}", list(args[:5]), args[5],
+                    torch.device("cuda"), gpu, lib)
 
 
 def phase_tools(work: str, gpu: str, parent: str | None = None) -> dict:
     """The modules no port CLI reaches before this phase, each card against
-    CPU: the Python engine (a, b), draft_assemble (c, with `parent` also
-    beside the parent's in turns), slagan_pairwise (d) and prolagan_fasta
-    (e).  Returns the launches of all card runs."""
+    CPU: the Python engine (a, b), draft_assemble (c), slagan_pairwise (d)
+    (each, with `parent`, also beside the parent's in turns) and
+    prolagan_fasta (e).  Returns the launches of all card runs."""
     total: dict = {}
     steps = [lambda: tools_python_engine(work, gpu, total),
              lambda: tools_check(work, gpu, total),
              lambda: tools_draft(gpu, total),
              lambda: tools_slagan(gpu, total),
-             lambda: tools_prolagan(gpu, total)]
+             lambda: tools_prolagan(gpu, total, parent)]
     if parent:
-        steps.insert(3, lambda: draft_runs(parent, gpu))
+        steps[3:3] = [lambda: tree_runs("draft", parent, gpu),
+                      lambda: tree_runs("slagan", parent, gpu)]
     for step in steps:
         t0 = time.perf_counter()
         step()
@@ -3155,8 +3378,9 @@ def main() -> int:
                          "needs two cards or more")
     ap.add_argument("--parent", metavar="DIR",
                     help="the port of the tree at DIR (the parent commit) "
-                         "beside this one: phase order times its wide band "
-                         "DP and walk, phase tools its draft_assemble, "
+                         "beside this one: phases order, anchors and "
+                         "csibelia_exact time its band DP, walks and sweep, "
+                         "phase tools its draft_assemble and sweep, "
                          "phase memory its -s loose and phase 4's "
                          "enumeration; with --memory, -s loose on "
                          f"{SLAB_STRAINS} strains")
@@ -3254,7 +3478,7 @@ def main() -> int:
     log("[anchors] sweep kernels (a warp a set, a block a set) vs plain "
         "PyTorch, sofar, bk, best and best_val bit-equal; anchors text vs "
         "native lagan_anchors")
-    sweep = phase_anchors(device, gpu)
+    sweep = phase_anchors(device, gpu, args.parent)
     phase_done("anchors")
     if args.kernels:
         log(f"  {gpu}; took {time.perf_counter() - t_run:.1f} s")
@@ -3299,7 +3523,8 @@ def main() -> int:
             "tracebacks on the card), 2.8 Mbp reference vs contigs, card vs "
             "CPU")
         exact = phase_csibelia_exact(device, work, gpu,
-                                     *write_csibelia_pair(work, CSIB_SIZE))
+                                     *write_csibelia_pair(work, CSIB_SIZE),
+                                     args.parent)
         phase_done("csibelia_exact")
     log("[tools] the Python engine (SIBELIA_TPU_NATIVE=0, "
         "SIBELIA_TPU_CHECK=1), draft_assemble, slagan_pairwise and "
@@ -3356,6 +3581,11 @@ def main() -> int:
             "ms": run["ms"], "plain_ms": run["plain_ms"],
             "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
             "library_ms": None})
+    log("  launches count wrapper calls: order_moves is three kernels at "
+        "wmax <= 32 (k_walk_tables, k_walk_compose, k_walk_replay) and one "
+        "above (k_order_moves_wide); order_band one at wmax <= 32 "
+        "(k_order_band_warp) and two above (k_band_words, then "
+        "k_order_band_reg or, at 8192, k_order_band)")
     log(f"[done] k={BIG_K} shape: segment scan kernel {scan['big_ms']:.3f} "
         f"ms, plain {scan['big_plain_ms']:.3f} ms; chip_smoke took "
         f"{time.perf_counter() - t_run:.1f} s")

@@ -25,11 +25,15 @@ C++ kernels of ``csrc/anchors_sweep.cu``, the event loop inside the kernel.
 A set of at most WARP_HITS hits (every set of a real C-Sibelia run) takes a
 warp of ``k_anchors_sweep_warp``: a lane a hit, everything in registers,
 three hardware warp reductions an event, no barrier and no memory access in
-the loop.  A larger set takes a block of ``k_anchors_sweep``: `a_e`,
-`sofar` and `alive` in shared memory (in device memory above SHARED_HITS
-hits), a block-wide lexicographic maximum an event.  Both are bound by the
-chain of a set's 2n events (the block form at large n by operations, 2n
-events of n lanes); no set goes to the host for its size.
+the loop.  A larger set takes a block of ``k_anchors_sweep``: the hits
+ranked once by (a_e, end event, the later first), then one warp runs the
+events over the alive staircase, a bit set over the ranks with sofar by
+rank in shared memory (in device memory above SHARED_HITS hits): under
+the invariant below sofar never falls along the alive ranks, so find_lt is
+the last alive rank below the key's and a kill a prefix of the alive ranks
+from the hit's own (``sweep_staircase_plain`` is that algebra on the
+host).  Both are bound by the chain of a set's 2n events; no set goes to
+the host for its size.
 
 ``sweep_packed`` takes CUDA tensors to the kernels (one launch a class
 that has sets) and CPU tensors to ``sweep_plain``, the same float32 and
@@ -252,8 +256,8 @@ def parse_chunk(line: str):
 NEG = np.float32(-3.4e38)   # "no entry" of a float maximum
 IMIN = -2**31 + 1           # "no entry" of an a_e maximum
 IMAX = 2**31 - 1
-# hits up to which a block keeps a_e, sofar and alive (9 bytes a hit) in
-# shared memory; csrc/anchors_sweep.cu is given the number
+# hits up to which a block keeps sofar by rank (4 bytes a hit, beside a bit
+# a hit) in shared memory; csrc/anchors_sweep.cu is given the number
 SHARED_HITS = 24_000
 # hits up to which a set takes a warp of k_anchors_sweep_warp (a lane a hit)
 WARP_HITS = 32
@@ -333,6 +337,79 @@ def sweep_plain(a_s: torch.Tensor, a_e: torch.Tensor, score: torch.Tensor,
     return sofar[keep], bk[keep], best, m1
 
 
+def staircase_order(a_e: np.ndarray, ev_hit: np.ndarray,
+                    ev_isstart: np.ndarray) -> np.ndarray:
+    """The hits of one set in the staircase's rank order: by a_e, then by
+    their end events, the later first."""
+    end_at = np.empty(len(a_e), np.int64)
+    ends = np.flatnonzero(ev_isstart == 0)
+    end_at[ev_hit[ends]] = ends
+    return np.lexsort((-end_at, a_e))
+
+
+def sweep_staircase_plain(a_s: torch.Tensor, a_e: torch.Tensor,
+                          score: torch.Tensor, ev_hit: torch.Tensor,
+                          ev_isstart: torch.Tensor, offsets: np.ndarray):
+    """k_anchors_sweep's algebra (the sets of more than WARP_HITS hits) on
+    the host, for the tests: the contract of sweep_plain on events where
+    each hit has one start and one end, the start first.
+
+    The hits are ranked by (a_e, end event, the later first).  Among alive
+    hits sofar then does not fall along the ranks: across a_e by the
+    skiplist's invariant, and inside a tie group because an insertion
+    kills the group's members at or below its own sofar and ranks before
+    the survivors.  So find_lt(key) is the last alive rank below the key's
+    rank (the hits with a_e < key), an unrefused end kills the alive ranks
+    from its own group's first rank on while their sofar is at most its
+    own (a prefix), and the final pick is the first alive rank that holds
+    the largest sofar."""
+    dev = a_s.device
+    a_s, a_e, score, ev_hit, ev_isstart = (
+        t.cpu().numpy() for t in (a_s, a_e, score, ev_hit, ev_isstart))
+    S = len(offsets) - 1
+    sofar_out = np.zeros(a_s.shape[0], np.float32)
+    bk_out = np.full(a_s.shape[0], -1, np.int32)
+    best = np.zeros(S, np.int32)
+    best_val = np.full(S, NEG, np.float32)
+    zero = np.float32(0)
+    for s in range(S):
+        lo, hi = int(offsets[s]), int(offsets[s + 1])
+        n = hi - lo
+        eh, es = ev_hit[2 * lo:2 * hi], ev_isstart[2 * lo:2 * hi]
+        ae, sc = a_e[lo:hi], score[lo:hi]
+        order = staircase_order(ae, eh, es)
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n)
+        keys = np.where(es == 1, a_s[lo:hi][eh], ae[eh])
+        K = np.searchsorted(ae[order], keys, side="left")
+        alive = np.zeros(n, bool)  # by rank
+        sofar = np.zeros(n, np.float32)  # by rank
+        bk = np.full(n, -1, np.int64)  # by hit, a rank
+        for e in range(2 * n):
+            h, k, r = int(eh[e]), int(K[e]), int(rank[eh[e]])
+            below = np.flatnonzero(alive[:k])
+            p = int(below[-1]) if below.size else -1
+            hs = sofar[p] if p >= 0 else NEG
+            if es[e] == 1:
+                chain = p >= 0 and hs > 0
+                sofar[r] = sc[h] + (hs if chain else zero)
+                bk[h] = p if chain else -1
+            elif not (p >= 0 and hs > sofar[r]):
+                at = k + np.flatnonzero(alive[k:])
+                above = sofar[at] > sofar[r]
+                alive[at[:int(above.argmax()) if above.any() else at.size]] = (
+                    False)
+                alive[r] = True
+        sofar_out[lo:hi] = sofar[rank]
+        bk_out[lo:hi] = np.where(bk >= 0, order[np.maximum(bk, 0)], -1)
+        if alive.any():
+            top = sofar[alive].max()
+            best[s] = order[int(np.flatnonzero(alive & (sofar == top))[0])]
+            best_val[s] = top
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (sofar_out, bk_out, best, best_val))
+
+
 def build() -> ctypes.CDLL:
     """Compile (when missing or stale) and load the kernel library."""
     lib = nvcc.load("anchors_sweep")
@@ -340,6 +417,8 @@ def build() -> ctypes.CDLL:
     lib.anchors_sweep_launch.restype = c_int
     lib.anchors_sweep_launch.argtypes = (
         [void_p] * 6 + [c_int] * 3 + [void_p] * 6)
+    lib.anchors_sweep_scratch_bytes.restype = ctypes.c_longlong
+    lib.anchors_sweep_scratch_bytes.argtypes = [ctypes.c_longlong, c_int]
     lib.anchors_sweep_warp_launch.restype = c_int
     lib.anchors_sweep_warp_launch.argtypes = (
         [void_p] * 6 + [c_int] + [void_p] * 5)
@@ -352,7 +431,8 @@ def sweep_packed(a_s: torch.Tensor, a_e: torch.Tensor, score: torch.Tensor,
     """Same contract as sweep_plain.  CPU tensors run the plain version;
     CUDA tensors launch the kernels on the current stream: one launch for
     the sets of at most WARP_HITS hits (a warp each), one for the larger
-    (a block each)."""
+    (a block each), which needs one start and one later end event a hit
+    (as event_order gives them; ``sweep`` checks)."""
     dev = a_s.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sweep_packed: unsupported device {dev}")
@@ -398,10 +478,12 @@ def sweep_packed(a_s: torch.Tensor, a_e: torch.Tensor, score: torch.Tensor,
                                f"error {err}")
         note_launch("anchors_sweep")
     if large.size:
-        alive = torch.empty(N, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(
+            lib.anchors_sweep_scratch_bytes(N, large.size), dtype=torch.uint8,
+            device=dev)
         err = lib.anchors_sweep_launch(
             *ins, spans.data_ptr() + 24 * small.size, large.size,
-            int(sizes[large].max()), SHARED_HITS, *outs, alive.data_ptr(),
+            int(sizes[large].max()), SHARED_HITS, scratch.data_ptr(), *outs,
             stream)
         if err != 0:
             raise RuntimeError(f"anchors_sweep_launch failed: CUDA error {err}")
@@ -420,6 +502,9 @@ def sweep(sets: list[tuple], device: torch.device
     offsets[1:] = np.cumsum([len(s[0]) for s in sets])
     N, S = int(offsets[-1]), len(sets)
     dtypes = (np.int32, np.int32, np.float32, np.int32, np.int32)
+    for s in sets:
+        if len(s[0]) > WARP_HITS:
+            check_events(np.asarray(s[3]), np.asarray(s[4]))
     packed = torch.from_numpy(np.concatenate(
         [np.asarray(s[c], dtype=dt).view(np.int32)
          for c, dt in enumerate(dtypes) for s in sets])).to(device)
@@ -431,6 +516,24 @@ def sweep(sets: list[tuple], device: torch.device
     best, best_val = flat[2 * N:2 * N + S], flat[2 * N + S:].view(np.float32)
     return [(sofar[lo:hi], bk[lo:hi], int(best[s]), float(best_val[s]))
             for s, (lo, hi) in enumerate(zip(offsets, offsets[1:]))]
+
+
+def check_events(ev_hit: np.ndarray, ev_isstart: np.ndarray) -> None:
+    """Raises unless the 2n events of one set hold one start and one later
+    end of each of its n hits (the block form's precondition)."""
+    n = ev_hit.shape[0] // 2
+    ok = (ev_hit.shape == ev_isstart.shape == (2 * n,)
+          and bool(np.isin(ev_isstart, (0, 1)).all())
+          and bool(((ev_hit >= 0) & (ev_hit < n)).all()))
+    if ok:
+        slot = 2 * ev_hit.astype(np.int64) + ev_isstart
+        at = np.empty(2 * n, np.int64)
+        at[slot] = np.arange(2 * n)
+        ok = bool((np.bincount(slot, minlength=2 * n) == 1).all()
+                  and (at[1::2] < at[0::2]).all())
+    if not ok:
+        raise ValueError("sweep: each hit needs one start event and one "
+                         "later end event")
 
 
 def event_order(b_s: np.ndarray, b_e: np.ndarray

@@ -6,9 +6,10 @@
 // diagonals 2..nd of the 3-state (M/N/O) int32 recurrence over a band of at
 // most wmax lanes, one uint8 pointer a lane a diagonal (bit 2: N extends,
 // bit 3: O extends, bits 0-1: the best of M, N, O).  The JAX package walks
-// the pointers back in its native library; here that walk is a kernel too
-// (k_order_moves), so that only the moves leave the card, and the nine
-// params columns are made on the card from the band's three (k_band_params).
+// the pointers back in its native library; here that walk is on the card
+// too (the traceback below), so that only the moves leave the card, and
+// the nine params columns are made on the card from the band's three
+// (k_band_params).
 //
 // Bound: the chain.  A diagonal needs the two before it, so a pair of L
 // bases is about 2 L dependent steps whatever the card's width; bytes (36 B
@@ -73,26 +74,38 @@
 //     as many as half the card's free memory holds), so wide pairs run side
 //     by side on as many SMs.
 //
-// k_order_moves: the walk of order_finish_mfa (native/lagan_order.cpp) from
-// (d1, d2) back to an edge, one move byte a step (0 mismatch, 1 match, 2,
-// 3), written from the end of the pair's buffer backwards, plus the count.
-// A warp a pair; every step is a load that depends on the one before.  At
-// wmax <= 32 the warp keeps a window of 32 diagonals of pointers in shared
-// memory (cp.async, the window below already on its way; a step goes back
-// one or two diagonals, so a window serves at least 16) and walks in (row,
-// lane) coordinates: the lane of the next cell is the lane in hand plus the
-// DP's own neighbour offset of that row (dd to (x - 1, y - 1), up to (x - 1,
-// y), up + 1 to (x, y - 1)), inside the band when below that row's size;
-// offsets and sizes of a row are one word beside its pointers.  All lanes
-// walk together, so that a step is two shared-memory loads side by side and
-// a few integer operations; the move bytes are made 32 steps at a time, a
-// lane a step (the match flag of a diagonal move needs two codes, which no
-// step waits for).  Wider bands walk the same way over windows of 32 rows
-// of SLICE lanes around the walk's lane (cp.async, the window below asked
-// for, centred on the lane in hand, when the walk enters one) with each
-// row's offsets and sizes beside them; a step's lane moves by a few lanes
-// a row, so a slice serves the window, and a cell outside it is read from
-// device memory.  Diagonal 1 reads as pointer 0 inside its band.
+// The traceback: the walk of order_finish_mfa (native/lagan_order.cpp)
+// from (d1, d2) back to an edge, one move byte a step (0 mismatch, 1 match,
+// 2, 3), written from the end of the pair's buffer backwards, plus the
+// count.  Every step is a load that depends on the one before, so one
+// walk is a chain of some 130 cycles a step.  The walk is in (row, lane)
+// coordinates: the lane of the next cell is the lane in hand plus the DP's
+// own neighbour offset of that row (dd to (x - 1, y - 1), up to (x - 1, y),
+// up + 1 to (x, y - 1)), inside the band when below that row's size;
+// offsets and sizes of a row are one word beside its pointers.  A step
+// depends only on (row, lane, run state), the pointer there and the row's
+// word.  The move bytes are made 32 steps at a time, a lane a step (the
+// match flag of a diagonal move needs two codes, which no step waits for).
+//   * wmax <= 32 (every pair of a real C-Sibelia run): the walk is cut into
+//     segments of seg_rows rows walked side by side, so that a batch takes
+//     about as long as a segment and not as its longest pair.  A walk
+//     enters a segment at its top row (run state 0, 1 or 2) or, by a
+//     diagonal step, the row below (run state 0), in one of 32 lanes: 128
+//     entry codes.  k_walk_tables, a block a segment (its rows and words in
+//     shared memory, a thread a code): each code's steps inside the segment
+//     and the code it leaves by (a pair's top segment only from the start);
+//     k_walk_compose, a thread a pair: one lookup a segment from the top
+//     gives each segment its true entry and, summed, the index of its first
+//     move; k_walk_replay, a warp a segment: the walk from that entry, all
+//     lanes together over windows of 32 rows in shared memory (cp.async,
+//     the window below already on its way), its bytes written.
+//   * wider bands (k_order_moves_wide), a warp a pair, the same walk over
+//     windows of 32 rows of SLICE lanes around the walk's lane (cp.async,
+//     the window below asked for, centred on the lane in hand, when the
+//     walk enters one) with each row's offsets and sizes beside them; a
+//     step's lane moves by a few lanes a row, so a slice serves the window,
+//     and a cell outside it is read from device memory.
+// Diagonal 1 reads as pointer 0 inside its band.
 //
 // One launch of each kernel serves all pairs of one wmax.
 //
@@ -909,6 +922,11 @@ k_order_band_warp(const uint8_t* __restrict__ codes,
 
 constexpr int TILE = 32;    // diagonals a window of the walk
 constexpr int SLICE = 256;  // lanes a row of a window holds at w > 32
+// the narrow walk's segments: entry codes (sel << 5 | lane; sel 0-2 the
+// segment's top row in run state sel, 3 the row below it in run state 0),
+// and the code of a walk that has ended
+constexpr int WALK_ENTRIES = 128;
+constexpr unsigned WALK_STOP = 255;
 
 // cp.async of window `win` (32 diagonals) of the pair's pointer rows, and of
 // each row's dd, up, sp1, sp2, into slot win & 1.
@@ -932,17 +950,38 @@ __device__ __forceinline__ void stage_window(
   __pipeline_commit();
 }
 
-// Once window `win` has arrived: what a step from a cell of each row needs,
-// as one word: the lane offsets to (x - 1, y - 1) two rows down (bits 0-7,
-// signed) and to (x - 1, y) one row down (bits 8-15; (x, y - 1) is one lane
-// further), and those rows' sizes (bits 22-27 and 16-21).  An offset beyond
-// +-64 leaves a band of 32 lanes wherever it starts, and is cut to that.
+// What a step from a cell of a row needs, as one word: the lane offsets to
+// (x - 1, y - 1) two rows down (bits 0-7, signed) and to (x - 1, y) one row
+// down (bits 8-15; (x, y - 1) is one lane further), and those rows' sizes
+// (bits 22-27 and 16-21).  An offset beyond +-64 leaves a band of 32 lanes
+// wherever it starts, and is cut to that.  q: the row's dd, up, sp1, sp2.
+__device__ __forceinline__ int step_word(const int* q) {
+  const int dd = min(max(q[0], -64), 64), up = min(max(q[1], -64), 64);
+  return (dd & 0xff) | (up & 0xff) << 8 | q[2] << 16 | q[3] << 22;
+}
+
+// Once window `win` has arrived: each row's step word.
 __device__ __forceinline__ void settle_window(int* s_step, const int* s_raw,
                                               int win, int lane) {
   const int at = (win & 1) * TILE + lane;
-  const int* q = s_raw + at * 4;
-  const int dd = min(max(q[0], -64), 64), up = min(max(q[1], -64), 64);
-  s_step[at] = (dd & 0xff) | (up & 0xff) << 8 | q[2] << 16 | q[3] << 22;
+  s_step[at] = step_word(s_raw + at * 4);
+}
+
+// The lane offset and the size of the row a step of kind `which` from a row
+// with step word `step` goes to.
+__device__ __forceinline__ int step_offset(int step, int which) {
+  return which == 0 ? (int)((unsigned)step << 24) >> 24
+                    : ((int)((unsigned)step << 16) >> 24) + (which == 2);
+}
+__device__ __forceinline__ int step_size(int step, int which) {
+  return (which == 0 ? step >> 22 : step >> 16) & 63;
+}
+
+// The move a step takes from pointer `zz` in run state `inrun`: a run goes
+// on where its continuation bit is set (bit 2 for a run of 1s, bit 3 for a
+// run of 2s).
+__device__ __forceinline__ int step_kind(int zz, int inrun) {
+  return (inrun != 0 && ((zz >> (inrun + 1)) & 1)) ? inrun : (zz & 3);
 }
 
 // w > 32: a window is TILE rows of `slice` lanes (SLICE, or w if less) from
@@ -974,86 +1013,24 @@ __device__ __forceinline__ int stage_slice(uint8_t* s_rows, int* s_raw,
   return lo;
 }
 
-// The walk in (row, lane) coordinates over windows in shared memory: the
-// lane of the next cell is the lane in hand plus the DP's own neighbour
-// offset of the row in hand.  WINDOW: w <= 32, whole rows, offsets and
-// sizes packed in a word a row.  Else (w > 32) a window holds a slice of
-// the rows around the walk's lane (dynamic shared memory, `slice` lanes a
-// row); a cell outside the slice is read from device memory.
-template <bool WINDOW>
-__global__ void __launch_bounds__(PAIR_WARPS * 32)
-k_order_moves(const uint8_t* __restrict__ codes, const int* __restrict__ params,
-              const long long* __restrict__ table, const uint8_t* rows,
-              int n_pairs, int w, int slice, uint8_t* __restrict__ moves,
-              int* __restrict__ counts) {
-  __shared__ __align__(16)
-      uint8_t s_rows_all[PAIR_WARPS][WINDOW ? 2 * TILE * 32 : 16];
-  __shared__ int s_raw_all[PAIR_WARPS][2 * TILE * 4];
-  __shared__ int s_step_all[PAIR_WARPS][WINDOW ? 2 * TILE : 1];
-  extern __shared__ __align__(16) uint8_t s_slices[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * PAIR_WARPS + warp;
-  if (b >= n_pairs) return;
-  const long long* tab = table + (long long)b * N_TABLE;
-  const uint8_t* s1 = codes + tab[T_S1] - 1;  // s1[x] is the code of x - 1
-  const uint8_t* s2 = codes + tab[T_S2] - 1;
-  const int d1 = (int)tab[T_N1] - SEQ_PAD, d2 = (int)tab[T_N2] - SEQ_PAD;
-  const int* par = params + tab[T_PARAMS] * N_PARAMS;
-  const int nd1 = (int)tab[T_DIAGS], nd = nd1 + 1;
-  const uint8_t* out = rows + tab[T_ROWS];
-  uint8_t* s_rows = WINDOW ? s_rows_all[warp]
-                          : s_slices + (size_t)warp * 2 * TILE * slice;
-  int* s_raw = s_raw_all[warp];
-  int* s_step = s_step_all[warp];
-  // diagonal 1 holds (1, 1) alone, element 0
-  const int diag1 = tab[T_DIAG1] != 0 ? 0 : 0xF;
+// The moves of a walk, written from `mv_end` backwards 32 steps at a time:
+// the walk keeps each step's move as two bits (in two masks) and the cell
+// the chunk began at; then lane j finds the cell of step j by counting
+// bits, loads its two codes and stores its byte, so that no step of the
+// walk waits for a code or a store.  `count`: the moves written before.
+struct Moves {
+  const uint8_t* s1;  // s1[x] is the code of x - 1
+  const uint8_t* s2;
+  uint8_t* mv_end;
+  int count, held, xs, ys;
+  unsigned m_lo, m_hi;
 
-  int have = ((nd1 - 1) >> 5) + 1;  // windows from `have` up are done with
-  if (WINDOW) stage_window(s_rows, s_raw, out, par, have - 1, nd1, w, lane);
-
-  // The pointer of (x, y) from device memory, and its lane in `ln`: the
-  // lane of (x, y) on diagonal dn = x + y - 1 is x - x0(dn) below the d2
-  // corner and y0(dn) - y from it on.
-  int ln = 0;
-  auto get_ptr = [&](int x, int y) -> int {
-    const int r = x + y - 3;  // the row of diagonal dn
-    if (r < 0 || r >= nd1) return (r == -1) ? diag1 : 0xF;
-    const int* q = par + (long long)r * N_PARAMS;
-    ln = r + 2 < d2 ? x - __ldg(q + P_X0) : __ldg(q + P_Y0) - y;
-    if (ln < 0 || ln >= __ldg(q + P_SIZE)) return 0xF;
-    return out[(long long)r * w + ln];
-  };
-  // Window `win` into shared memory (the walk only goes down, and the
-  // window below is already on its way), and the next one asked for (w >
-  // 32: centred on the lane in hand).
-  int lo0 = 0, lo1 = 0;  // the first lane of the slice in slot 0, 1
-  auto enter = [&](int win) {
-    __pipeline_wait_prior(0);
-    have = win;
-    if (WINDOW) settle_window(s_step, s_raw, have, lane);
-    __syncwarp();
-    if (have > 0) {
-      if (WINDOW) {
-        stage_window(s_rows, s_raw, out, par, have - 1, nd1, w, lane);
-      } else {
-        const int lo = stage_slice(s_rows, s_raw, out, par, have - 1, nd1, w,
-                                   slice, ln, lane);
-        if ((have - 1) & 1) lo1 = lo;
-        else lo0 = lo;
-      }
-    }
-  };
-
-  int x = d1, y = d2, inrun = 0, count = 0;
-  // Moves are written from the end of the pair's nd bytes backwards, 32
-  // steps at a time: the walk keeps each step's move as two bits (in two
-  // masks) and the cell the chunk began at; then lane j finds the cell of
-  // step j by counting bits, loads its two codes and stores its byte, so
-  // that no step of the walk waits for a code or a store.
-  uint8_t* const mv_end = moves + tab[T_MOVES] + nd;
-  unsigned m_lo = 0, m_hi = 0;
-  int held = 0, xs = x, ys = y;
-  auto flush = [&]() {
+  __device__ __forceinline__ void take(int which) {
+    m_lo |= (unsigned)(which & 1) << held;
+    m_hi |= (unsigned)(which >> 1) << held;
+    ++held;
+  }
+  __device__ __forceinline__ void flush(int x, int y, int lane) {
     if (lane < held) {
       const unsigned below = (1u << lane) - 1;
       const int which = ((m_lo >> lane) & 1) | ((m_hi >> lane) & 1) << 1;
@@ -1070,82 +1047,334 @@ k_order_moves(const uint8_t* __restrict__ codes, const int* __restrict__ params,
     m_lo = m_hi = 0;
     xs = x;
     ys = y;
+  }
+};
+
+// The pair `p` of segment g: first_seg (int32 [n_pairs + 1]) holds the first
+// segment of each pair, in the class table's order.
+__device__ __forceinline__ int pair_of_segment(const int* first_seg,
+                                               int n_pairs, int g) {
+  int lo = 0, hi = n_pairs;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(first_seg + mid) <= g) lo = mid;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The cell (x, y) of lane `ln` of row r (diagonal r + 2).
+__device__ __forceinline__ void cell_of(const int* par, int r, int ln, int d2,
+                                        int& x, int& y) {
+  const int* q = par + (long long)r * N_PARAMS;
+  if (r + 2 < d2) {
+    x = __ldg(q + P_X0) + ln;
+    y = r + 3 - x;
+  } else {
+    y = __ldg(q + P_Y0) - ln;
+    x = r + 3 - y;
+  }
+}
+
+// The entry code of the walk's start (d1, d2) on the pair's last row.
+__device__ __forceinline__ unsigned start_code(const int* par, int nd1, int d1,
+                                               int d2) {
+  const int* q = par + (long long)(nd1 - 1) * N_PARAMS;
+  const int ln = nd1 + 1 < d2 ? d1 - __ldg(q + P_X0) : __ldg(q + P_Y0) - d2;
+  return (unsigned)ln < 32u ? (unsigned)ln : WALK_STOP;
+}
+
+// The narrow walk (w <= 32), step 1: a block a segment of seg_rows rows
+// (pair b's from row k * seg_rows up), its pointer rows and step words in
+// shared memory, a thread an entry code.  Each walks inside the segment
+// until it stops or leaves it, and writes (steps << 8 | exit code) to
+// tables[g * WALK_ENTRIES + code].  A pair's top segment is entered only at
+// the walk's start: its other codes are not walked.
+__global__ void __launch_bounds__(WALK_ENTRIES)
+k_walk_tables(const int* __restrict__ params,
+              const long long* __restrict__ table,
+              const uint8_t* __restrict__ rows,
+              const int* __restrict__ first_seg, int n_pairs, int seg_rows,
+              unsigned* __restrict__ tables) {
+  extern __shared__ __align__(16) uint8_t s_seg[];
+  const int g = blockIdx.x, tid = threadIdx.x;
+  const int b = pair_of_segment(first_seg, n_pairs, g);
+  const long long* tab = table + (long long)b * N_TABLE;
+  const int w = (int)tab[T_WMAX], nd1 = (int)tab[T_DIAGS];
+  const int d1 = (int)tab[T_N1] - SEQ_PAD, d2 = (int)tab[T_N2] - SEQ_PAD;
+  const int* par = params + tab[T_PARAMS] * N_PARAMS;
+  const int lo = (g - __ldg(first_seg + b)) * seg_rows;
+  const int hi = min(nd1, lo + seg_rows);
+  const bool top = hi == nd1;
+  // rows [lo, hi): w bytes each, then a step word each
+  uint8_t* s_ptr = s_seg;
+  int* s_step = reinterpret_cast<int*>(s_seg + (size_t)seg_rows * 32);
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        rows + tab[T_ROWS] + (long long)lo * w);
+    uint4* dst = reinterpret_cast<uint4*>(s_ptr);
+    const int n16 = (hi - lo) * w / 16;
+    for (int i = tid; i < n16; i += blockDim.x) dst[i] = src[i];
+    for (int r = lo + tid; r < hi; r += blockDim.x) {
+      const int* q = par + (long long)r * N_PARAMS;
+      const int raw[4] = {__ldg(q + P_DD), __ldg(q + P_UP), __ldg(q + P_SP1),
+                          __ldg(q + P_SP2)};
+      s_step[r - lo] = step_word(raw);
+    }
+  }
+  __syncthreads();
+  const unsigned code = (unsigned)tid;
+  if (top && code != start_code(par, nd1, d1, d2)) return;
+  const int diag1 = tab[T_DIAG1] != 0 ? 0 : 0xF;
+  const int sel = tid >> 5;
+  int ln = tid & 31, r = sel < 3 ? hi - 1 : hi - 2, inrun = sel < 3 ? sel : 0;
+  int x, y;
+  cell_of(par, r, ln, d2, x, y);
+  int zz = ln < __ldg(par + (long long)r * N_PARAMS + P_SIZE)
+               ? s_ptr[(r - lo) * w + ln] : 0xF;
+  int step = s_step[r - lo], steps = 0;
+  unsigned exit = WALK_STOP;
+  while ((zz & 3) != 3) {
+    const int which = step_kind(zz, inrun);
+    ++steps;
+    x -= which != 2;
+    y -= which != 1;
+    inrun = which;
+    if (x <= 0 || y <= 0) break;
+    ln += step_offset(step, which);
+    const bool inside = (unsigned)ln < (unsigned)step_size(step, which);
+    r -= which == 0 ? 2 : 1;
+    if (r < lo) {
+      if (r < 0) {  // diagonal 1, from which every move leaves the matrix
+        zz = r == -1 ? diag1 : 0xF;
+        continue;
+      }
+      if (inside) exit = (unsigned)((r == lo - 1 ? inrun : 3) << 5 | ln);
+      break;
+    }
+    step = s_step[r - lo];
+    zz = inside ? s_ptr[(r - lo) * w + ln] : 0xF;
+  }
+  tables[(long long)g * WALK_ENTRIES + code] = (unsigned)steps << 8 | exit;
+}
+
+// Step 2: a thread a pair goes down its segments from the top, a lookup
+// each, and writes each segment's true entry code and the index of its
+// first move (WALK_STOP: the walk ended above it), and the pair's count.
+__global__ void k_walk_compose(const int* __restrict__ params,
+                               const long long* __restrict__ table,
+                               const int* __restrict__ first_seg, int n_pairs,
+                               const unsigned* __restrict__ tables,
+                               int2* __restrict__ seg_entry,
+                               int* __restrict__ counts) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_pairs) return;
+  const long long* tab = table + (long long)b * N_TABLE;
+  const int nd1 = (int)tab[T_DIAGS];
+  const int d1 = (int)tab[T_N1] - SEQ_PAD, d2 = (int)tab[T_N2] - SEQ_PAD;
+  unsigned state =
+      start_code(params + tab[T_PARAMS] * N_PARAMS, nd1, d1, d2);
+  const int g0 = first_seg[b];
+  int total = 0;
+  for (int g = first_seg[b + 1] - 1; g >= g0; --g) {
+    seg_entry[g] = make_int2((int)state, total);
+    if (state == WALK_STOP) continue;
+    const unsigned e = tables[(long long)g * WALK_ENTRIES + state];
+    total += (int)(e >> 8);
+    state = e & 0xff;
+  }
+  counts[tab[T_PAIR]] = total;
+}
+
+// Step 3: a warp a segment walks from its true entry code until the walk
+// stops or leaves the segment, over windows of 32 rows in shared memory
+// (cp.async, the window below already on its way), and writes its moves
+// from the index of its first.  All lanes walk the same cells.
+__global__ void __launch_bounds__(PAIR_WARPS * 32)
+k_walk_replay(const uint8_t* __restrict__ codes,
+              const int* __restrict__ params,
+              const long long* __restrict__ table, const uint8_t* rows,
+              const int* __restrict__ first_seg, int n_pairs, int n_segs,
+              int seg_rows, const int2* __restrict__ seg_entry,
+              uint8_t* __restrict__ moves) {
+  __shared__ __align__(16) uint8_t s_rows_all[PAIR_WARPS][2 * TILE * 32];
+  __shared__ int s_raw_all[PAIR_WARPS][2 * TILE * 4];
+  __shared__ int s_step_all[PAIR_WARPS][2 * TILE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = blockIdx.x * PAIR_WARPS + warp;
+  if (g >= n_segs) return;
+  const int2 entry = seg_entry[g];
+  if ((unsigned)entry.x == WALK_STOP) return;
+  const int b = pair_of_segment(first_seg, n_pairs, g);
+  const long long* tab = table + (long long)b * N_TABLE;
+  const int w = (int)tab[T_WMAX], nd1 = (int)tab[T_DIAGS], nd = nd1 + 1;
+  const int d2 = (int)tab[T_N2] - SEQ_PAD;
+  const int* par = params + tab[T_PARAMS] * N_PARAMS;
+  const uint8_t* out = rows + tab[T_ROWS];
+  const int lo = (g - __ldg(first_seg + b)) * seg_rows;
+  const int hi = min(nd1, lo + seg_rows);
+  uint8_t* s_rows = s_rows_all[warp];
+  int* s_raw = s_raw_all[warp];
+  int* s_step = s_step_all[warp];
+  const int diag1 = tab[T_DIAG1] != 0 ? 0 : 0xF;
+  const int sel = entry.x >> 5;
+  int ln = entry.x & 31, r = sel < 3 ? hi - 1 : hi - 2;
+  int inrun = sel < 3 ? sel : 0, x, y;
+  cell_of(par, r, ln, d2, x, y);
+  int zz = ln < __ldg(par + (long long)r * N_PARAMS + P_SIZE)
+               ? out[(long long)r * w + ln] : 0xF;
+  Moves mv{codes + tab[T_S1] - 1, codes + tab[T_S2] - 1,
+           moves + tab[T_MOVES] + nd, entry.y, 0, x, y, 0u, 0u};
+
+  // windows from `have` up are done with; window `win` into shared memory
+  // (the walk only goes down, and the window below is already on its way)
+  int have = (r >> 5) + 1;
+  stage_window(s_rows, s_raw, out, par, have - 1, nd1, w, lane);
+  auto enter = [&](int win) {
+    __pipeline_wait_prior(0);
+    have = win;
+    settle_window(s_step, s_raw, have, lane);
+    __syncwarp();
+    if (have > 0)
+      stage_window(s_rows, s_raw, out, par, have - 1, nd1, w, lane);
+  };
+  enter(r >> 5);
+  int step = s_step[r & (2 * TILE - 1)];
+  // One taken branch a step: a lone warp waits out every one.  The rare
+  // cases (a chunk of moves full, a new window, the segment's end) sit
+  // behind branches that are as a rule not taken.
+  bool go = (zz & 3) != 3;
+  while (go) {
+    const int which = step_kind(zz, inrun);
+    mv.take(which);
+    x -= which != 2;
+    y -= which != 1;
+    inrun = which;
+    if (mv.held == 32) mv.flush(x, y, lane);
+    const int size = step_size(step, which);
+    ln += step_offset(step, which);
+    r -= which == 0 ? 2 : 1;
+    if (r < have * TILE) {
+      if (r < lo) {
+        // the segment below goes on from here; below row 0, diagonal 1,
+        // from which every move leaves the matrix
+        zz = r == -1 ? diag1 : 0xF;
+        go = lo == 0 && x > 0 && y > 0 && zz != 0xF;
+        continue;
+      }
+      enter(r >> 5);
+    }
+    const int at = r & (2 * TILE - 1);
+    step = s_step[at];
+    zz = s_rows[at * w + (ln & 31)];
+    zz = (unsigned)ln < (unsigned)size ? zz : 0xF;
+    go = x > 0 && y > 0 && (zz & 3) != 3;
+  }
+  mv.flush(x, y, lane);
+  __pipeline_wait_prior(0);
+}
+
+// The wide walk (w > 32), a warp a pair from (d1, d2) back to an edge, in
+// (row, lane) coordinates: the lane of the next cell is the lane in hand
+// plus the DP's own neighbour offset of the row in hand.  A window holds a
+// slice of the rows around the walk's lane (dynamic shared memory, `slice`
+// lanes a row); a cell outside the slice is read from device memory.
+__global__ void __launch_bounds__(PAIR_WARPS * 32)
+k_order_moves_wide(const uint8_t* __restrict__ codes,
+                   const int* __restrict__ params,
+                   const long long* __restrict__ table, const uint8_t* rows,
+                   int n_pairs, int w, int slice,
+                   uint8_t* __restrict__ moves, int* __restrict__ counts) {
+  __shared__ int s_raw_all[PAIR_WARPS][2 * TILE * 4];
+  extern __shared__ __align__(16) uint8_t s_slices[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * PAIR_WARPS + warp;
+  if (b >= n_pairs) return;
+  const long long* tab = table + (long long)b * N_TABLE;
+  const int d1 = (int)tab[T_N1] - SEQ_PAD, d2 = (int)tab[T_N2] - SEQ_PAD;
+  const int* par = params + tab[T_PARAMS] * N_PARAMS;
+  const int nd1 = (int)tab[T_DIAGS], nd = nd1 + 1;
+  const uint8_t* out = rows + tab[T_ROWS];
+  uint8_t* s_rows = s_slices + (size_t)warp * 2 * TILE * slice;
+  int* s_raw = s_raw_all[warp];
+  // diagonal 1 holds (1, 1) alone, element 0
+  const int diag1 = tab[T_DIAG1] != 0 ? 0 : 0xF;
+
+  int have = ((nd1 - 1) >> 5) + 1;  // windows from `have` up are done with
+
+  // The pointer of (x, y) from device memory, and its lane in `ln`: the
+  // lane of (x, y) on diagonal dn = x + y - 1 is x - x0(dn) below the d2
+  // corner and y0(dn) - y from it on.
+  int ln = 0;
+  auto get_ptr = [&](int x, int y) -> int {
+    const int r = x + y - 3;  // the row of diagonal dn
+    if (r < 0 || r >= nd1) return (r == -1) ? diag1 : 0xF;
+    const int* q = par + (long long)r * N_PARAMS;
+    ln = r + 2 < d2 ? x - __ldg(q + P_X0) : __ldg(q + P_Y0) - y;
+    if (ln < 0 || ln >= __ldg(q + P_SIZE)) return 0xF;
+    return out[(long long)r * w + ln];
+  };
+  // Window `win` into shared memory (the walk only goes down, and the
+  // window below is already on its way), and the next one asked for,
+  // centred on the lane in hand.
+  int lo0 = 0, lo1 = 0;  // the first lane of the slice in slot 0, 1
+  auto enter = [&](int win) {
+    __pipeline_wait_prior(0);
+    have = win;
+    __syncwarp();
+    if (have > 0) {
+      const int lo = stage_slice(s_rows, s_raw, out, par, have - 1, nd1, w,
+                                 slice, ln, lane);
+      if ((have - 1) & 1) lo1 = lo;
+      else lo0 = lo;
+    }
   };
 
+  int x = d1, y = d2, inrun = 0;
+  Moves mv{codes + tab[T_S1] - 1, codes + tab[T_S2] - 1,
+           moves + tab[T_MOVES] + nd, 0, 0, x, y, 0u, 0u};
   int zz = get_ptr(x, y);
-  // the row of the cell in hand and what a step from it needs
-  int r = nd1 - 1, step = 0;
-  if (!WINDOW) {
+  // the row of the cell in hand
+  int r = nd1 - 1;
+  {
     const int lo = stage_slice(s_rows, s_raw, out, par, have - 1, nd1, w,
                                slice, ln, lane);
     if ((have - 1) & 1) lo1 = lo;
     else lo0 = lo;
   }
   enter(r >> 5);
-  if (WINDOW) step = s_step[r & (2 * TILE - 1)];
-  // One taken branch a step: a lone warp waits out every one.  The rare
-  // cases (a chunk of moves full, a new window, diagonal 1) sit behind
-  // branches that are as a rule not taken.
   bool go = (zz & 3) != 3;  // 3: off the band
   while (go) {
-    // a run goes on where its continuation bit is set (bit 2 for a run of
-    // 1s, bit 3 for a run of 2s)
-    const int which = (inrun != 0 && ((zz >> (inrun + 1)) & 1)) ? inrun
-                                                                : (zz & 3);
-    m_lo |= (unsigned)(which & 1) << held;
-    m_hi |= (unsigned)(which >> 1) << held;
-    ++held;
+    const int which = step_kind(zz, inrun);
+    mv.take(which);
     x -= which != 2;
     y -= which != 1;
     inrun = which;
-    if (held == 32) flush();
-    if (WINDOW) {
-      // every lane walks the same cells: a step is uniform
-      const int off = which == 0
-                          ? (int)((unsigned)step << 24) >> 24
-                          : ((int)((unsigned)step << 16) >> 24) + (which == 2);
-      const int size = (which == 0 ? step >> 22 : step >> 16) & 63;
-      r -= which == 0 ? 2 : 1;
-      ln += off;
-      if (r < have * TILE) {
-        if (r < 0) {
-          // diagonal 1, from which every move leaves the matrix
-          zz = r == -1 ? diag1 : 0xF;
-          go = x > 0 && y > 0 && zz != 0xF;
-          continue;
-        }
-        enter(r >> 5);
+    if (mv.held == 32) mv.flush(x, y, lane);
+    const int* q = s_raw + (r & (2 * TILE - 1)) * 4;  // dd, up, sp1, sp2
+    const int off = which == 0 ? q[0] : q[1] + (which == 2);
+    const int size = which == 0 ? q[3] : q[2];
+    r -= which == 0 ? 2 : 1;
+    ln += off;
+    if (r < have * TILE) {
+      if (r < 0) {
+        zz = r == -1 ? diag1 : 0xF;
+        go = x > 0 && y > 0 && zz != 0xF;
+        continue;
       }
-      const int at = r & (2 * TILE - 1);
-      step = s_step[at];
-      zz = s_rows[at * w + (ln & 31)];
-      zz = (unsigned)ln < (unsigned)size ? zz : 0xF;
-    } else {
-      const int* q = s_raw + (r & (2 * TILE - 1)) * 4;  // dd, up, sp1, sp2
-      const int off = which == 0 ? q[0] : q[1] + (which == 2);
-      const int size = which == 0 ? q[3] : q[2];
-      r -= which == 0 ? 2 : 1;
-      ln += off;
-      if (r < have * TILE) {
-        if (r < 0) {
-          zz = r == -1 ? diag1 : 0xF;
-          go = x > 0 && y > 0 && zz != 0xF;
-          continue;
-        }
-        enter(r >> 5);
-      }
-      const int rel = ln - ((r >> 5) & 1 ? lo1 : lo0);
-      if ((unsigned)ln >= (unsigned)size) zz = 0xF;
-      else if ((unsigned)rel < (unsigned)slice)
-        zz = s_rows[(r & (2 * TILE - 1)) * slice + rel];
-      else
-        zz = out[(long long)r * w + ln];
+      enter(r >> 5);
     }
+    const int rel = ln - ((r >> 5) & 1 ? lo1 : lo0);
+    if ((unsigned)ln >= (unsigned)size) zz = 0xF;
+    else if ((unsigned)rel < (unsigned)slice)
+      zz = s_rows[(r & (2 * TILE - 1)) * slice + rel];
+    else
+      zz = out[(long long)r * w + ln];
     go = x > 0 && y > 0 && (zz & 3) != 3;
   }
-  flush();
+  mv.flush(x, y, lane);
   __pipeline_wait_prior(0);
-  if (lane == 0) counts[tab[T_PAIR]] = count;
+  if (lane == 0) counts[tab[T_PAIR]] = mv.count;
 }
 
 // ---- params on the card ----------------------------------------------------
@@ -1270,28 +1499,74 @@ extern "C" int order_band_launch(const void* codes, const void* params,
 
 // The traceback of `n_pairs` pairs of one `wmax` over the pointer rows that
 // order_band_launch wrote: pair b's moves end at moves[table[b][T_MOVES] +
-// nd], counts[table[b][T_PAIR]] of them.
+// nd], counts[table[b][T_PAIR]] of them.  At wmax <= 32 three kernels in a
+// row: the segments' tables, the composition, the replay, over segments of
+// seg_rows rows (a multiple of 32): first_seg int32 [n_pairs + 1] (pair b's
+// segments are first_seg[b] .. first_seg[b + 1] - 1, n_segs in all), and
+// the scratch tables (uint32 [n_segs * WALK_ENTRIES]) and seg_entry (int32
+// [n_segs * 2]).  Above, one kernel; those four are not read.  split_ms
+// (host float [3], or null): at wmax <= 32 the three kernels' ms, from
+// events around each, the call waiting for the last.
 extern "C" int order_moves_launch(const void* codes, const void* params,
                                   const void* table, const void* rows,
-                                  int n_pairs, int wmax, void* moves,
-                                  void* counts, void* stream) {
+                                  int n_pairs, int wmax, int seg_rows,
+                                  const void* first_seg, int n_segs,
+                                  void* tables, void* seg_entry, void* moves,
+                                  void* counts, void* stream,
+                                  float* split_ms) {
   if (n_pairs <= 0) return 0;
-  const int blocks = (n_pairs + PAIR_WARPS - 1) / PAIR_WARPS;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (wmax <= 32) {
-    k_order_moves<true><<<blocks, PAIR_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const int*)params, (const long long*)table,
-        (const uint8_t*)rows, n_pairs, wmax, 0, (uint8_t*)moves,
-        (int*)counts);
-    return (int)cudaGetLastError();
+    if (seg_rows < TILE || seg_rows % TILE != 0 || n_segs < n_pairs)
+      return cudaErrorInvalidValue;
+    const int shared = seg_rows * (32 + (int)sizeof(int));
+    cudaError_t err = cudaFuncSetAttribute(
+        k_walk_tables, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+    cudaEvent_t ev[4] = {};
+    for (int i = 0; split_ms && i < 4 && err == cudaSuccess; ++i)
+      err = cudaEventCreate(&ev[i]);
+    if (split_ms && err == cudaSuccess) err = cudaEventRecord(ev[0], st);
+    if (err == cudaSuccess) {
+      k_walk_tables<<<n_segs, WALK_ENTRIES, shared, st>>>(
+          (const int*)params, (const long long*)table, (const uint8_t*)rows,
+          (const int*)first_seg, n_pairs, seg_rows, (unsigned*)tables);
+      err = cudaGetLastError();
+    }
+    if (split_ms && err == cudaSuccess) err = cudaEventRecord(ev[1], st);
+    if (err == cudaSuccess) {
+      k_walk_compose<<<(n_pairs + 127) / 128, 128, 0, st>>>(
+          (const int*)params, (const long long*)table, (const int*)first_seg,
+          n_pairs, (const unsigned*)tables, (int2*)seg_entry, (int*)counts);
+      err = cudaGetLastError();
+    }
+    if (split_ms && err == cudaSuccess) err = cudaEventRecord(ev[2], st);
+    if (err == cudaSuccess) {
+      k_walk_replay<<<(n_segs + PAIR_WARPS - 1) / PAIR_WARPS,
+                      PAIR_WARPS * 32, 0, st>>>(
+          (const uint8_t*)codes, (const int*)params, (const long long*)table,
+          (const uint8_t*)rows, (const int*)first_seg, n_pairs, n_segs,
+          seg_rows, (const int2*)seg_entry, (uint8_t*)moves);
+      err = cudaGetLastError();
+    }
+    if (split_ms && err == cudaSuccess) {
+      err = cudaEventRecord(ev[3], st);
+      if (err == cudaSuccess) err = cudaEventSynchronize(ev[3]);
+      for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+        err = cudaEventElapsedTime(split_ms + i, ev[i], ev[i + 1]);
+    }
+    for (int i = 0; i < 4; ++i)
+      if (ev[i]) cudaEventDestroy(ev[i]);
+    return (int)err;
   }
+  const int blocks = (n_pairs + PAIR_WARPS - 1) / PAIR_WARPS;
   const int slice = min(wmax, SLICE);
   const int shared = PAIR_WARPS * 2 * TILE * slice;
   cudaError_t err = cudaFuncSetAttribute(
-      k_order_moves<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k_order_moves_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
       shared);
   if (err != cudaSuccess) return (int)err;
-  k_order_moves<false><<<blocks, PAIR_WARPS * 32, shared,
-                         (cudaStream_t)stream>>>(
+  k_order_moves_wide<<<blocks, PAIR_WARPS * 32, shared, st>>>(
       (const uint8_t*)codes, (const int*)params, (const long long*)table,
       (const uint8_t*)rows, n_pairs, wmax, slice, (uint8_t*)moves,
       (int*)counts);

@@ -26,14 +26,20 @@ on the card:
   by shuffles and, across warps, shared memory; ``k_order_band`` at 8192,
   the band in shared memory.  Only lanes inside the band are computed.  One uint8
   pointer a lane a diagonal goes to device memory and stays there;
-* ``k_order_moves``: the walk of ``order_finish_mfa`` from (d1, d2) back to
-  an edge, a warp a pair over a window of pointers in shared memory (above
-  32 lanes a slice of the rows around the walk's lane); one move byte a
-  step comes down (at most ``nd`` bytes a pair).
+* the walk of ``order_finish_mfa`` from (d1, d2) back to an edge; one
+  move byte a step comes down (at most ``nd`` bytes a pair).  Up to 32
+  lanes it runs in segments of ``WALK_SEGMENT_ROWS`` rows side by side:
+  ``k_walk_tables`` walks every way into every segment (128 entry codes)
+  to where it leaves, ``k_walk_compose`` chains each pair's segments from
+  the top, ``k_walk_replay`` walks each segment from its true entry and
+  writes its moves (``order_moves_segments_plain`` is the algebra on the
+  host).  Above 32 lanes ``k_order_moves_wide``, a warp a pair over
+  windows of a slice of the rows around the walk's lane.
 
-None is bound by bytes or operations: the DP and the walks by the longest
-pair's chain of dependent steps, the wide DP's step by the latency of its
-instructions on the one SM that does all of a pair's lanes.
+None is bound by bytes or operations: the DP and the wide walk by the
+longest pair's chain of dependent steps, the narrow walk by a segment's,
+the wide DP's step by the latency of its instructions on the one SM that
+does all of a pair's lanes.
 
 Split of labour: band construction (shapes, necks) stays in the native
 library (``le_order_prepare``), the ``-mfa`` text is made here from the
@@ -99,6 +105,11 @@ CARD_BYTES_A_DIAGONAL = 49
 # diagonal) stays that of BATCH_ROW_BYTES of 32-lane pairs, about 100 MB
 BATCH_DIAGONALS = BATCH_ROW_BYTES // 32
 N_PARAMS = 9  # size, o_dd, o_up, o_lf, x0, y0, isneck, sp1, sp2
+# the narrow walk (wmax <= 32) in segments of this many rows, walked side
+# by side: 128 entry codes a segment, WALK_STOP once the walk has ended
+WALK_SEGMENT_ROWS = 1024
+WALK_ENTRIES = 128
+WALK_STOP = 255
 # int64 columns of the per-pair table the kernel and the plain version read
 (T_S1, T_N1, T_S2, T_N2, T_PARAMS, T_DIAGS, T_INIT, T_ROWS, T_WMAX,
  T_MOVES, T_PAIR, T_BAND, T_DIAG1, N_TABLE) = range(14)
@@ -364,7 +375,7 @@ def band_params_plain(band: torch.Tensor, table: np.ndarray) -> torch.Tensor:
 def order_moves_plain(codes: torch.Tensor, params: torch.Tensor,
                       table: np.ndarray, rows: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """k_order_moves's function step by step on the host: (moves uint8
+    """The walk's function step by step on the host: (moves uint8
     [moves_bytes(table)], counts int32 [B]).  Pair b's walk from (d1, d2)
     (``order_finish_mfa`` of native/lagan_order.cpp) leaves one byte a step
     (0 mismatch, 1 match, 2, 3), the last step first, written backwards
@@ -428,6 +439,116 @@ def order_moves_plain(codes: torch.Tensor, params: torch.Tensor,
         end = row[T_MOVES] + nd
         moves[end - len(out):end] = out[::-1]
         counts[row[T_PAIR]] = len(out)
+    return torch.from_numpy(moves).to(dev), torch.from_numpy(counts).to(dev)
+
+
+def order_moves_segments_plain(codes: torch.Tensor, params: torch.Tensor,
+                               table: np.ndarray, rows: torch.Tensor,
+                               segment_rows: int = WALK_SEGMENT_ROWS,
+                               trace: list | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The narrow walk's algebra (``k_walk_tables``, ``k_walk_compose``,
+    ``k_walk_replay``) on the host, for the tests: order_moves_plain's
+    contract for pairs of wmax <= 32.
+
+    A pair's rows are cut into segments of `segment_rows` from row 0 up.
+    The walk enters a segment at its top row or, by a diagonal step over
+    it, the row below, in any lane and run state: WALK_ENTRIES (sel, lane)
+    codes, sel 0-2 the top row in run state sel, 3 the row below (run
+    state 0).  Tables: from every entry code of every segment (the top
+    segment only from the walk's start), the steps taken inside it and the
+    code it leaves by, or WALK_STOP.  Composition: from the top segment
+    down, one lookup a segment gives each its true entry and, summed, the
+    index of its first move.  Replay: each segment walks from its entry
+    and writes its moves.  `trace` gets (pair, segment, entry, steps,
+    exit) of every segment the walk entered."""
+    dev = codes.device
+    codes_h = codes.cpu().numpy()
+    par = params.cpu().numpy()
+    rows_h = rows.cpu().numpy()
+    moves = np.zeros(moves_bytes(table), np.uint8)
+    counts = np.zeros(table.shape[0], np.int32)
+    for b, row in enumerate(table.tolist()):
+        s1, s2 = row[T_S1], row[T_S2]
+        d1, d2 = row[T_N1] - _SEQ_PAD, row[T_N2] - _SEQ_PAD
+        w, nd1 = row[T_WMAX], row[T_DIAGS]
+        if w > 32:
+            raise ValueError("order_moves_segments_plain: wmax <= 32")
+        p = par[row[T_PARAMS]:row[T_PARAMS] + nd1]
+        x0s, y0s, sizes = (p[:, c].tolist() for c in (4, 5, 0))
+        ptr = rows_h[row[T_ROWS]:row[T_ROWS] + nd1 * w].reshape(nd1, w)
+        diag1 = 0 if row[T_DIAG1] else 0xF
+
+        def lane_of(r, x, y):
+            return x - x0s[r] if r + 2 < d2 else y0s[r] - y
+
+        def walk(lo, hi, code, out=None):
+            """(steps, exit code) of the walk from `code` into rows [lo,
+            hi), its moves appended to `out`."""
+            sel, ln = code >> 5, code & 31
+            r, inrun = (hi - 1, sel) if sel < 3 else (hi - 2, 0)
+            if r + 2 < d2:
+                x = x0s[r] + ln
+                y = r + 3 - x
+            else:
+                y = y0s[r] - ln
+                x = r + 3 - y
+            zz = int(ptr[r, ln]) if ln < sizes[r] else 0xF
+            steps = 0
+            while zz & 3 != 3:
+                which = zz & 3
+                if inrun == 1 and zz & 4:
+                    which = 1
+                elif inrun == 2 and zz & 8:
+                    which = 2
+                if out is not None:
+                    out.append(int(codes_h[s1 + x - 1] == codes_h[s2 + y - 1])
+                               if which == 0 else which + 1)
+                steps += 1
+                x -= which != 2
+                y -= which != 1
+                inrun = which
+                if not (x > 0 and y > 0):
+                    break
+                r -= 2 if which == 0 else 1
+                if r < 0:
+                    zz = diag1 if r == -1 else 0xF
+                    continue
+                ln = lane_of(r, x, y)
+                inside = 0 <= ln < sizes[r]
+                if r < lo:  # leaves by the segment below's entry
+                    return steps, ((inrun if r == lo - 1 else 3) << 5 | ln
+                                   if inside else WALK_STOP)
+                zz = int(ptr[r, ln]) if inside else 0xF
+            return steps, WALK_STOP
+
+        S = segment_rows
+        nseg = -(-nd1 // S)
+        bounds = [(k * S, min(nd1, (k + 1) * S)) for k in range(nseg)]
+        ln0 = lane_of(nd1 - 1, d1, d2)
+        start = ln0 if 0 <= ln0 < 32 else WALK_STOP
+        tables = [[walk(lo, hi, c) for c in range(WALK_ENTRIES)]
+                  for lo, hi in bounds[:-1]]
+        tables.append({start: walk(*bounds[-1], start)}
+                      if start != WALK_STOP else {})
+        # composition, from the top segment down
+        entries, state, total = [], start, 0
+        for k in range(nseg - 1, -1, -1):
+            if state == WALK_STOP:
+                break
+            steps, exit_ = tables[k][state]
+            entries.append((k, state, total))
+            total += steps
+            state = exit_
+        # replay
+        end = row[T_MOVES] + nd1 + 1
+        for k, code, first in entries:
+            out: list[int] = []
+            steps, exit_ = walk(*bounds[k], code, out)
+            moves[end - first - steps:end - first] = out[::-1]
+            if trace is not None:
+                trace.append((b, k, code, steps, exit_))
+        counts[row[T_PAIR]] = total
     return torch.from_numpy(moves).to(dev), torch.from_numpy(counts).to(dev)
 
 
@@ -547,7 +668,8 @@ def build() -> ctypes.CDLL:
                                       + [void_p] * 2
                                       + [ctypes.c_longlong, void_p])
     lib.order_moves_launch.restype = c_int
-    lib.order_moves_launch.argtypes = [void_p] * 4 + [c_int] * 2 + [void_p] * 3
+    lib.order_moves_launch.argtypes = ([void_p] * 4 + [c_int] * 3 + [void_p]
+                                       + [c_int] + [void_p] * 6)
     lib.band_params_launch.restype = c_int
     lib.band_params_launch.argtypes = [void_p, void_p, c_int,
                                        ctypes.c_longlong, void_p, void_p]
@@ -591,13 +713,13 @@ def _check(who: str, typed, table: np.ndarray,
 
 
 def _classes(table: np.ndarray, dev: torch.device):
-    """(wmax, pairs, the class's table on the device) of each band width
-    among the pairs, the longest chain first."""
+    """(wmax, the class's table, the same on the device) of each band
+    width among the pairs, the longest chain first."""
     for wmax in np.unique(table[:, T_WMAX]).tolist():
         sel = table[table[:, T_WMAX] == wmax]
         sel = np.ascontiguousarray(sel[np.argsort(-sel[:, T_DIAGS],
                                                   kind="stable")])
-        yield int(wmax), sel.shape[0], torch.from_numpy(sel).to(dev)
+        yield int(wmax), sel, torch.from_numpy(sel).to(dev)
 
 
 def _launched(name: str, err: int) -> None:
@@ -641,12 +763,12 @@ def band_rows(codes: torch.Tensor, params: torch.Tensor, init: torch.Tensor,
         _SM_DEVICE[dev] = torch.from_numpy(_SM.reshape(-1).copy()).to(dev)
     out = torch.empty(rows_bytes(table), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for wmax, pairs, tab in _classes(table, dev):
+    for wmax, sel, tab in _classes(table, dev):
         words, base = class_words(table, wmax, dev)
         with torch.cuda.device(dev):
             _launched("order_band", lib.order_band_launch(
                 codes.data_ptr(), params.data_ptr(), init.data_ptr(),
-                tab.data_ptr(), _SM_DEVICE[dev].data_ptr(), pairs, wmax,
+                tab.data_ptr(), _SM_DEVICE[dev].data_ptr(), len(sel), wmax,
                 GAP_START, GAP_CONT, int(DUMMY), _CB_CODE, out.data_ptr(),
                 None if words is None else words.data_ptr(), base, stream))
     return out
@@ -666,11 +788,16 @@ def class_words(table: np.ndarray, wmax: int, dev: torch.device
 
 
 def band_moves(codes: torch.Tensor, params: torch.Tensor, table: np.ndarray,
-               rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+               rows: torch.Tensor, split_ms: np.ndarray | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as order_moves_plain, except that bytes before a
     pair's moves are not set.  CPU tensors run the plain version; CUDA
-    tensors launch k_order_moves on the current stream, once for every
-    ``wmax`` among the pairs."""
+    tensors launch the walk on the current stream, once for every ``wmax``
+    among the pairs: up to 32 lanes the three kernels of the walk in
+    segments of WALK_SEGMENT_ROWS rows (a multiple of 32), above
+    ``k_order_moves_wide``.  ``split_ms`` (float32 [3], for measurements):
+    the narrow class's three kernels' ms, tables, composition, replay, the
+    call waiting for them."""
     dev = _check("band_moves", [(codes, torch.uint8), (params, torch.int32),
                                 (rows, torch.uint8)], table, params)
     if rows.shape != (rows_bytes(table),):
@@ -679,15 +806,31 @@ def band_moves(codes: torch.Tensor, params: torch.Tensor, table: np.ndarray,
     if dev.type == "cpu":
         return order_moves_plain(codes, params, table, rows)
     lib = build()
+    segment_rows = WALK_SEGMENT_ROWS
     moves = torch.empty(moves_bytes(table), dtype=torch.uint8, device=dev)
     counts = torch.empty(table.shape[0], dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for wmax, pairs, tab in _classes(table, dev):
+    for wmax, sel, tab in _classes(table, dev):
+        scratch, n_segs = [], 0
+        if wmax <= 32:
+            # the first segment of each pair, the segments' tables and
+            # entries
+            first = np.zeros(len(sel) + 1, np.int32)
+            first[1:] = np.cumsum(-(-sel[:, T_DIAGS] // segment_rows))
+            n_segs = int(first[-1])
+            scratch = [torch.from_numpy(first).to(dev),
+                       torch.empty(n_segs * WALK_ENTRIES, dtype=torch.int32,
+                                   device=dev),
+                       torch.empty(n_segs * 2, dtype=torch.int32, device=dev)]
+        first_seg, tables, entries = (
+            [t.data_ptr() for t in scratch] or [None] * 3)
         with torch.cuda.device(dev):
             _launched("order_moves", lib.order_moves_launch(
                 codes.data_ptr(), params.data_ptr(), tab.data_ptr(),
-                rows.data_ptr(), pairs, wmax, moves.data_ptr(),
-                counts.data_ptr(), stream))
+                rows.data_ptr(), len(sel), wmax, segment_rows, first_seg,
+                n_segs, tables, entries, moves.data_ptr(), counts.data_ptr(),
+                stream, split_ms.ctypes.data if split_ms is not None
+                and wmax <= 32 else None))
     return moves, counts
 
 

@@ -94,6 +94,153 @@ def test_sweep_plain_matches_jax(seed, tie_heavy):
     _same_bits(np.float32(got[3]), np.float32(want[3]))
 
 
+def staircase_set(rng, n, kind):
+    """hit_set's sets of the block form's sizes: random, tie-heavy, or
+    every a_e equal (one tie group)."""
+    s = list(hit_set(rng, n, kind == "tie-heavy", span=max(500, 4 * n)))
+    if kind == "equal a_e":
+        s[1] = np.full(n, 123, np.int32)
+        s[0] = np.minimum(s[0], 122).astype(np.int32)
+    return tuple(s)
+
+
+STAIRCASE_KINDS = ["random", "tie-heavy", "equal a_e"]
+
+
+@pytest.mark.parametrize("n", [33, 60, 256, 1000])
+@pytest.mark.parametrize("kind", STAIRCASE_KINDS)
+def test_staircase_plain_matches_jax_and_the_plain_sweep(n, kind):
+    """The block form's algebra (ranks, the last alive rank below a key, a
+    kill a prefix of the alive ranks) against the JAX scan and the masked
+    maxima of sweep_plain, bit for bit."""
+    from sibelia_tpu.align.anchors_device import _sweep_device
+    s = staircase_set(np.random.default_rng(n), n, kind)
+    want = _sweep_device(*s)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in s]
+    offsets = np.array([0, n], np.int64)
+    got = port.sweep_staircase_plain(*args, offsets)
+    plain = port.sweep_plain(*args, offsets)
+    for g, p in zip(got, plain):
+        _same_bits(g.numpy(), p.numpy())
+    _same_bits(got[0].numpy(), want[0])
+    _same_bits(got[1].numpy(), want[1])
+    assert int(got[2][0]) == want[2]
+    _same_bits(got[3].numpy()[0], np.float32(want[3]))
+
+
+def _masked_events(a_s, a_e, score, ev_hit, ev_isstart):
+    """_sweep_device's steps in numpy, one set: yields (alive, sofar, end
+    event of each hit, -1 before it) after every event."""
+    n = len(a_s)
+    sofar = np.zeros(n, np.float32)
+    alive = np.zeros(n, bool)
+    ended = np.full(n, -1)
+    for e, (h, start) in enumerate(zip(ev_hit.tolist(), ev_isstart.tolist())):
+        key = a_s[h] if start else a_e[h]
+        mask = alive & (a_e < key)
+        hs = np.float32(port.NEG)
+        if mask.any():
+            hs = sofar[mask & (a_e == a_e[mask].max())].max()
+        if start:
+            sofar[h] = score[h] + (hs if mask.any() and hs > 0
+                                   else np.float32(0))
+        else:
+            ended[h] = e
+            if not (mask.any() and hs > sofar[h]):
+                alive &= ~((a_e >= a_e[h]) & (sofar <= sofar[h]))
+                alive[h] = True
+        yield alive, sofar, ended
+
+
+@st.composite
+def _proper_sets(draw):
+    """n hits with a_e on a small grid (ties), scores with repeats, and any
+    order of their 2n events in which each hit's start comes first."""
+    n = draw(st.integers(1, 40))
+    a_e = np.array(draw(st.lists(st.integers(0, 12), min_size=n,
+                                 max_size=n)), np.int32) * 5
+    a_s = a_e - np.array(draw(st.lists(st.integers(0, 20), min_size=n,
+                                       max_size=n)), np.int32)
+    score = np.array(draw(st.lists(st.sampled_from([-3, 0, 1, 2, 5, 10]),
+                                   min_size=n, max_size=n)), np.float32)
+    seq = draw(st.permutations(list(range(n)) * 2))
+    seen, ev_hit, ev_st = set(), [], []
+    for h in seq:
+        ev_hit.append(h)
+        ev_st.append(0 if h in seen else 1)
+        seen.add(h)
+    return (a_s, a_e, score, np.array(ev_hit, np.int32),
+            np.array(ev_st, np.int32))
+
+
+@settings(max_examples=150, deadline=None)
+@given(_proper_sets())
+@example((np.array([0, 0], np.int32), np.array([5, 5], np.int32),
+          np.array([2, 1], np.float32), np.array([0, 1, 0, 1], np.int32),
+          np.array([1, 1, 0, 0], np.int32)))
+def test_the_staircase_invariant_holds_after_every_event(s):
+    """After every event of the masked algebra: among alive hits sofar
+    never falls along ascending a_e, and inside a tie group it falls
+    strictly in the order of the members' end events; so sofar never
+    falls along the staircase's ranks.  The staircase's algebra then gives
+    sweep_plain's bits."""
+    a_s, a_e, score, ev_hit, ev_isstart = s
+    for alive, sofar, ended in _masked_events(*s):
+        at = np.flatnonzero(alive)
+        for i in at:
+            later = at[a_e[at] > a_e[i]]
+            assert (sofar[later] >= sofar[i]).all()
+            group = at[(a_e[at] == a_e[i]) & (ended[at] > ended[i])]
+            assert (sofar[group] < sofar[i]).all()
+        rank = port.staircase_order(a_e, ev_hit, ev_isstart)
+        ranked = rank[alive[rank]]
+        assert (np.diff(sofar[ranked]) >= 0).all()
+    args = [torch.from_numpy(a) for a in s]
+    offsets = np.array([0, len(a_s)], np.int64)
+    for g, p in zip(port.sweep_staircase_plain(*args, offsets),
+                    port.sweep_plain(*args, offsets)):
+        _same_bits(g.numpy(), p.numpy())
+
+
+def test_sweep_refuses_events_a_hit_cannot_have():
+    """The block form's precondition: one start and one later end a hit;
+    sweep raises before anything goes to a device."""
+    rng = np.random.default_rng(12)
+    good = hit_set(rng, 40)
+    a_s, a_e, score, ev_h, ev_st = (np.array(a) for a in good)
+    starts = np.flatnonzero(ev_st == 1)
+    late = ev_st.copy()  # hit ev_h[starts[3]] ends before it starts
+    end = int(np.flatnonzero((ev_st == 0) & (ev_h == ev_h[starts[3]]))[0])
+    late[starts[3]], late[end] = 0, 1
+    twice = ev_h.copy()
+    twice[np.flatnonzero(ev_h == 7)[0]] = 8
+    outside = ev_h.copy()
+    outside[0] = 40
+    for eh, es in ((ev_h, late), (twice, ev_st), (outside, ev_st)):
+        with pytest.raises(ValueError, match="one start event"):
+            port.sweep([hit_set(rng, 3), (a_s, a_e, score, eh, es)], CPU)
+    port.sweep([good], CPU)
+
+
+def test_sweep_checks_only_the_block_forms_sets():
+    """A set of at most WARP_HITS hits goes to the warp form, which takes
+    any event order: sweep lets one whose hit ends before it starts
+    through, with the JAX sweep's bits."""
+    from sibelia_tpu.align.anchors_device import _sweep_device
+    rng = np.random.default_rng(13)
+    a_s, a_e, score, ev_h, ev_st = (np.array(a) for a in
+                                    hit_set(rng, port.WARP_HITS))
+    first = int(np.flatnonzero(ev_st == 1)[0])
+    end = int(np.flatnonzero((ev_st == 0) & (ev_h == ev_h[first]))[0])
+    ev_st[first], ev_st[end] = 0, 1
+    (got,) = port.sweep([(a_s, a_e, score, ev_h, ev_st)], CPU)
+    want = _sweep_device(a_s, a_e, score, ev_h, ev_st)
+    _same_bits(got[0], want[0])
+    _same_bits(got[1], want[1])
+    assert got[2] == want[2]
+    _same_bits(np.float32(got[3]), np.float32(want[3]))
+
+
 def test_a_list_of_sets_equals_each_set_alone():
     rng = np.random.default_rng(31)
     sets = [hit_set(rng, n, tie) for n, tie in
@@ -312,10 +459,13 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(port, "build", no_build)
     monkeypatch.setattr(port, "sweep_plain", no_plain)
-    s = hit_set(np.random.default_rng(0), 5)
-    args = [torch.from_numpy(a).as_subclass(OnCard) for a in s]
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        port.sweep_packed(*args, np.array([0, 5], np.int64))
+    monkeypatch.setattr(port, "sweep_staircase_plain", no_plain)
+    # the warp form (5 hits) and the block form (40)
+    for n in (5, 40):
+        s = hit_set(np.random.default_rng(0), n)
+        args = [torch.from_numpy(a).as_subclass(OnCard) for a in s]
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            port.sweep_packed(*args, np.array([0, n], np.int64))
 
 
 CUDA_SETS = [(1, False), (2, False), (2, True), (13, False), (32, False),
@@ -384,3 +534,60 @@ def test_cuda_text_matches_native():
     for gfc in (False, True):
         assert (port.anchors_text_device(hits, gfc, torch.device("cuda"))
                 == lagan_anchors(hits, gfc=gfc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 1000, 4097])
+@pytest.mark.parametrize("kind", STAIRCASE_KINDS)
+def test_cuda_staircase_matches_both_plain_versions(n, kind):
+    """The block form at the sizes of its shared-memory sort (33, 1000) and
+    of its sort in device memory (4097), against sweep_plain and the
+    staircase's own algebra."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    s = staircase_set(np.random.default_rng(n + 1), n, kind)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in s]
+    offsets = np.array([0, n], np.int64)
+    got = port.sweep_packed(*[a.cuda() for a in args], offsets)
+    for want in (port.sweep_plain(*args, offsets),
+                 port.sweep_staircase_plain(*args, offsets)):
+        for g, w in zip(got, want):
+            _same_bits(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_block_sets_of_every_layout_in_one_launch():
+    """Sets whose sort runs in shared and in device memory, and one whose
+    sofar lies in device memory, tie-heavy and not, in one launch beside
+    small sets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(17)
+    sets = [staircase_set(rng, n, kind) for n, kind in (
+        (3, "random"), (33, "tie-heavy"), (5000, "equal a_e"),
+        (port.SHARED_HITS + 1, "tie-heavy"), (4096, "random"),
+        (31, "random"), (257, "equal a_e"))]
+    offsets = np.zeros(len(sets) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(x[0]) for x in sets])
+    args = [torch.from_numpy(np.concatenate([x[c] for x in sets]))
+            for c in range(5)]
+    before = LAUNCHES.get("anchors_sweep", 0)
+    got = port.sweep_packed(*[a.cuda() for a in args], offsets)
+    assert LAUNCHES["anchors_sweep"] == before + 2
+    for g, w in zip(got, port.sweep_plain(*args, offsets)):
+        _same_bits(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_block_form_with_four_levels_of_bits():
+    """32 * 1024 + 1 hits: the bit set takes a fourth level (and lies with
+    sofar in device memory), against sweep_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 32 * 1024 + 1
+    s = staircase_set(np.random.default_rng(23), n, "random")
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in s]
+    offsets = np.array([0, n], np.int64)
+    got = port.sweep_packed(*args, offsets)
+    for g, w in zip(got, port.sweep_plain(*args, offsets)):
+        _same_bits(g.cpu().numpy(), w.cpu().numpy())

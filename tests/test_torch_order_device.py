@@ -211,6 +211,117 @@ def _native_walk_on_random_rows(seed, case):
     assert used1 < len(sa) and used2 < len(sb)
 
 
+def _native_text(job, rows):
+    """Native lagan_order's walk over the pointer rows `rows` of a job
+    (uint8 [nd - 1, wmax]): its -mfa text."""
+    lib = load_lagan()
+    ptrs = np.zeros((job.nd, job.wmax), np.uint8)
+    ptrs[1:] = rows
+    out = lib.le_order_finish(job.handle, b"x", b"y", ptrs.ctypes.data,
+                              job.wmax)
+    return _take_string(lib, out)
+
+
+def _segment_walk(case, segment_rows, wild_seed=None):
+    """The segment walk's algebra on one case's plain pointer rows (or, with
+    `wild_seed`, random pointer bytes), held to order_moves_plain and to
+    native lagan_order's walk over the same rows: (job, moves, trace)."""
+    sa, sb, anch = _case(case)
+    lib = load_lagan()
+    job = port._prepare_job(lib, sa, sb, anch, 8192)
+    try:
+        codes, params, init, table = port.pack_jobs([job])
+        codes, params, init = (torch.from_numpy(a)
+                               for a in (codes, params, init))
+        if wild_seed is None:
+            rows = port.order_band_rows_plain(codes, params, init, table)
+        else:
+            rng = np.random.default_rng(wild_seed)
+            n = port.rows_bytes(table)
+            rows = torch.from_numpy((rng.integers(0, 3, n)
+                                     | (rng.integers(0, 4, n) << 2))
+                                    .astype(np.uint8))
+        trace = []
+        got = port.order_moves_segments_plain(codes, params, table, rows,
+                                              segment_rows, trace)
+        want = port.order_moves_plain(codes, params, table, rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        moves = got[0].numpy()[job.nd - int(got[1][0]):]
+        assert (port.mfa_text(job, moves, "x", "y")
+                == _native_text(job, rows.numpy().reshape(job.nd - 1,
+                                                          job.wmax)))
+    finally:
+        lib.le_order_release(job.handle)
+    return job, moves, trace
+
+
+@pytest.mark.parametrize("segment_rows", [7, 33])
+def test_segment_walk_crosses_edges_by_a_diagonal_over_the_edge_row(
+        segment_rows):
+    """The DP's own walk through segments of 7 and 33 rows (a diagonal step
+    goes two rows down, so odd sizes meet the edges in both parities):
+    some segments are entered on the row below their top one, by a
+    diagonal step over it; every segment below the top is entered once,
+    in order."""
+    job, moves, trace = _segment_walk("1500", segment_rows)
+    assert sum(code >> 5 == 3 for _, _, code, _, _ in trace) > 5
+    ks = [k for _, k, _, _, _ in trace]
+    assert ks == list(range(ks[0], ks[0] - len(ks), -1))
+    assert ks[0] == (job.nd - 2) // segment_rows
+    assert sum(steps for _, _, _, steps, _ in trace) == len(moves)
+
+
+@pytest.mark.parametrize("seed,segment_rows", [(3, 5), (4, 64), (5, 32)])
+def test_segment_walk_stops_off_the_band_inside_a_segment(seed,
+                                                          segment_rows):
+    """Random pointer bytes send the walk off the band: it stops inside a
+    segment above row 0 (no exit code), as the native walk does."""
+    job, moves, trace = _segment_walk("contig break", segment_rows, seed)
+    _, k, _, steps, exit_ = trace[-1]
+    assert exit_ == port.WALK_STOP and k > 0 and steps > 0
+    assert int((moves != 3).sum()) < job.nd // 2
+
+
+@pytest.mark.parametrize("segment_rows", [3, 7])
+def test_segment_walk_reaches_diagonal_1(segment_rows):
+    """ACGT against ACGT: all matches, the walk's last step leaves (1, 1)
+    from diagonal 1, in the bottom segment, after entering segments on
+    the row below their top."""
+    job, moves, trace = _segment_walk("nd = 9", segment_rows)
+    assert moves.tolist() == [1, 1, 1, 1, 1]
+    assert trace[-1][1] == 0 and any(c >> 5 == 3 for _, _, c, _, _ in trace)
+
+
+@pytest.mark.parametrize("case", list(SMALL) + ["1500"])
+def test_segment_walk_of_pairs_shorter_than_a_segment(case):
+    """A pair of fewer rows than a segment is its top segment alone,
+    entered at the walk's start only."""
+    job, _, trace = _segment_walk(case, 4096)
+    assert job.nd - 1 < 4096
+    assert len(trace) == 1 and trace[0][1] == 0
+
+
+def test_segment_walk_of_a_ragged_batch_of_several_segments_a_pair():
+    """The batch's narrow pairs, in segments of 96 rows, on random pointer
+    bytes and on their own DP's rows: the walk of each pair."""
+    prepared, args, table = _packed(_batch_jobs())
+    keep = np.flatnonzero(table[:, port.T_WMAX] <= 32)
+    prepared = [prepared[i] for i in keep]
+    table = port.sub_table(table, keep)
+    rng = np.random.default_rng(44)
+    n = port.rows_bytes(table)
+    wild = torch.from_numpy((rng.integers(0, 3, n)
+                             | (rng.integers(0, 4, n) << 2)).astype(np.uint8))
+    for rows in (wild, port.order_band_rows_plain(*args, table)):
+        trace = []
+        got = port.order_moves_segments_plain(args[0], args[1], table, rows,
+                                              96, trace)
+        want = port.order_moves_plain(args[0], args[1], table, rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert len({b for b, *_ in trace}) == len(prepared)
+    assert min(job.nd for job in prepared) > 4 * 96
+
+
 @pytest.mark.parametrize("case", MOVE_CASES)
 def test_band_params_plain_equals_the_columns_of_prepare_job(case):
     sa, sb, anch = _case(case)
@@ -427,10 +538,23 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
         raise AssertionError("the plain version was taken")
 
     monkeypatch.setattr(port, "build", no_build)
-    monkeypatch.setattr(port, "order_band_rows_plain", no_plain)
-    _, args, table = _packed(_batch_jobs()[:1])
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        port.band_rows(*[a.as_subclass(OnCard) for a in args], table)
+    for name in ("order_band_rows_plain", "order_moves_plain",
+                 "order_moves_segments_plain", "band_params_plain"):
+        monkeypatch.setattr(port, name, no_plain)
+    # a narrow pair (the segment walk) and a wide one
+    for jobs in (_batch_jobs()[:1], _batch_jobs()[5:]):
+        prepared, args, table = _packed(jobs)
+        on_card = [a.as_subclass(OnCard) for a in args]
+        rows = torch.zeros(port.rows_bytes(table),
+                           dtype=torch.uint8).as_subclass(OnCard)
+        band = torch.from_numpy(port.pack_bands(prepared)[1])
+        for call in (lambda: port.band_rows(*on_card, table),
+                     lambda: port.band_moves(on_card[0], on_card[1], table,
+                                             rows),
+                     lambda: port.band_params(band.as_subclass(OnCard),
+                                              table)):
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                call()
 
 
 def _cuda_same_inside_the_band(jobs):
@@ -521,6 +645,38 @@ def test_cuda_traceback_matches_plain_on_any_pointer_rows():
         end = int(table[b, port.T_MOVES] + table[b, port.T_DIAGS] + 1)
         lo = end - int(counts[b])
         assert torch.equal(moves[lo:end], want_moves[lo:end]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segment_rows", [32, 96, 1024])
+def test_cuda_segment_walk_matches_plain_on_a_ragged_batch(segment_rows,
+                                                          monkeypatch):
+    """The three kernels of the narrow walk, in segments of 32, 96 and 1024
+    rows (several a pair, and pairs under one), on the batch's DP rows and
+    on random pointer bytes, with a wide pair beside them: moves and counts
+    of every pair as order_moves_plain's, each class one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(port, "WALK_SEGMENT_ROWS", segment_rows)
+    rng = np.random.default_rng(segment_rows)
+    jobs = _batch_jobs() + [(a, "a", b, "b", "") for a, b in SMALL.values()]
+    prepared, args, table = _packed(jobs)
+    assert {job.wmax for job in prepared} == {16, 32, 256}
+    args = [a.cuda() for a in args]
+    n = port.rows_bytes(table)
+    wild = torch.from_numpy((rng.integers(0, 3, n)
+                             | (rng.integers(0, 4, n) << 2)).astype(np.uint8))
+    for rows in (port.band_rows(*args, table), wild.cuda()):
+        before = LAUNCHES.get("order_moves", 0)
+        moves, counts = port.band_moves(args[0], args[1], table, rows)
+        assert LAUNCHES["order_moves"] == before + 3
+        want, want_counts = port.order_moves_plain(args[0], args[1], table,
+                                                   rows)
+        assert torch.equal(counts, want_counts)
+        for b in range(table.shape[0]):
+            end = int(table[b, port.T_MOVES] + table[b, port.T_DIAGS] + 1)
+            lo = end - int(counts[b])
+            assert torch.equal(moves[lo:end], want[lo:end]), b
 
 
 @pytest.mark.cuda
