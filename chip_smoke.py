@@ -1719,11 +1719,12 @@ def sharded_call(strains, k: int, mesh, want) -> dict:
     every field and dtype: its seconds, scan launches, exchanged bytes and
     blocking copies."""
     import torch
-    from sibelia_tpu_torch.core.platform import LAUNCHES, SYNC_COUNTS
+    from sibelia_tpu_torch.core import timings
+    from sibelia_tpu_torch.core.platform import LAUNCHES
     from sibelia_tpu_torch.parallel.sharded_enum import \
         enumerate_bifurcations_sharded
     launches = LAUNCHES.get("enum_segment_scan", 0)
-    syncs = dict(SYNC_COUNTS)
+    syncs = dict(timings._ACC)
     mesh.exchanged_bytes = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1733,9 +1734,9 @@ def sharded_call(strains, k: int, mesh, want) -> dict:
     out = {"s": time.perf_counter() - t0,
            "launches": LAUNCHES.get("enum_segment_scan", 0) - launches,
            "bytes": mesh.exchanged_bytes,
-           "syncs": {tag: n - syncs.get(tag, 0)
-                     for tag, n in SYNC_COUNTS.items()
-                     if n != syncs.get(tag, 0)},
+           "syncs": {key[6:]: n - syncs.get(key, 0)
+                     for key, n in timings._ACC.items()
+                     if key.startswith("syncs_") and n != syncs.get(key, 0)},
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     same_enumeration(got, want)
     return out
@@ -1829,7 +1830,6 @@ def phase_sharded(device, strains, gpu: str, order: dict) -> dict:
     from sibelia_tpu_torch.parallel.sharded import Mesh
     from sibelia_tpu_torch.parallel.sharded_sweep import \
         sharded_candidate_scan
-    os.environ["SIBELIA_TPU_COUNT_SYNCS"] = "1"
     card = torch.device("cuda", 0)
     out: dict = {}
     wants = {}
@@ -1925,7 +1925,6 @@ def phase_sharded(device, strains, gpu: str, order: dict) -> dict:
                            "differs from the unsharded call")
     log(f"  order_mfa_device_batch over [cuda:0] * 2, {len(texts)} pairs: "
         f"the unsharded call's text ({time.perf_counter() - t0:.2f} s)")
-    os.environ.pop("SIBELIA_TPU_COUNT_SYNCS")
     return out
 
 
@@ -2044,7 +2043,7 @@ def card_peak(device, codes, block_starts, n_chr: int, k: int,
     given): its peak allocated and peak reserved bytes, seconds and count
     (None when the card ran out of memory)."""
     import torch
-    from sibelia_tpu_torch.core.platform import SYNC_COUNTS
+    from sibelia_tpu_torch.core import timings
     from sibelia_tpu_torch.index.enum_device import card_free_bytes
     from sibelia_tpu_torch.index.enumeration import enumerate_on_device
     torch.cuda.synchronize()
@@ -2053,8 +2052,7 @@ def card_peak(device, codes, block_starts, n_chr: int, k: int,
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         base_reserved = torch.cuda.memory_reserved()
-        os.environ["SIBELIA_TPU_COUNT_SYNCS"] = "1"
-        SYNC_COUNTS.clear()
+        ranges0 = timings._ACC.get("syncs_candidate_ranges", 0)
         t0 = time.perf_counter()
         try:
             count = enumerate_on_device(codes, block_starts, n_chr, k,
@@ -2062,12 +2060,11 @@ def card_peak(device, codes, block_starts, n_chr: int, k: int,
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
             count = None
-        finally:
-            del os.environ["SIBELIA_TPU_COUNT_SYNCS"]
+        cuts = timings._ACC.get("syncs_candidate_ranges", 0) - ranges0
         out = {"rows": int(codes.shape[0]), "k": k, "count": count,
                "s": time.perf_counter() - t0, "free": free,
                # the prefilter's owner ranges, two copies a cut
-               "ranges": SYNC_COUNTS.get("candidate_ranges", 0) // 2 + 1,
+               "ranges": cuts // 2 + 1,
                "allocated": torch.cuda.max_memory_allocated() - base,
                "reserved": torch.cuda.max_memory_reserved() - base_reserved}
     return out

@@ -645,6 +645,7 @@ def anchors_text_device_batch(texts: list[str], gfc: bool = True,
             parsed.append((i, hits))
             sets.append((hits.a_s, hits.a_e, hits.score, ev_h, ev_st))
             HITS_PER_SWEEP.append(len(hits.order))
+            timings.add("anchors_sweeps", 1)
     if sets:
         with timings.phase("anchors_device"):
             swept = sweep(sets, device)

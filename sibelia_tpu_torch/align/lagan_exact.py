@@ -214,10 +214,12 @@ def rechaos_batch(pairs: list[tuple[bytes, str, bytes, str]],
         pool = ThreadPoolExecutor(max_workers=processes)
     try:
         for level in range(len(levels)):
-            if pool is not None:
-                texts = list(pool.map(lambda st: st.chaos(level), states))
-            else:
-                texts = [st.chaos(level) for st in states]
+            with timings.phase("chaos"):
+                if pool is not None:
+                    texts = list(pool.map(lambda st: st.chaos(level),
+                                          states))
+                else:
+                    texts = [st.chaos(level) for st in states]
             for st, anch in zip(states, _anchors_stage(texts, gfc, device)):
                 st.absorb(level, anch)
     finally:

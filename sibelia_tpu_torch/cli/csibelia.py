@@ -17,15 +17,19 @@ run there (``align/anchors_device.py``,
 band DP in the native library.  Under ``SIBELIA_TPU_NATIVE=0`` the exact
 mode takes the anchored aligner, as the JAX CLI's does.
 
-``SIBELIA_TPU_TIMINGS=<path>`` dumps the phase seconds with the launch
-counts, ``gotoh_flushes`` (gap batches the fast aligner closed) and
-``gotoh_pairs`` (gap subproblems in them), and of the exact aligner's
-device path ``order_device_jobs`` and ``order_host_fallback`` (band DPs
-sent to the device module, and kept by the native engine for their width),
-``order_row_bytes`` (the traceback's moves and counts brought back; the
-pointer rows stay on the card) and ``anchors_sweeps`` (hit sets swept); its
-phases are ``rechaos``, with ``anchors_parse`` and ``anchors_device`` inside
-it, ``order_prepare``, ``order_device`` and ``order_finish``.
+``SIBELIA_TPU_TIMINGS=<path>`` dumps the run's record of
+``core/timings.py`` (the Sibelia stage's included: one record for the
+whole run) with the launch counts; its counters ``gotoh_flushes`` (gap
+batches the fast aligner closed) and ``gotoh_pairs`` (gap subproblems in
+them), and of the exact aligner's device path ``order_device_jobs`` and
+``order_host_fallback`` (band DPs sent to the device module, and kept by
+the native engine for their width), ``order_row_bytes`` (the traceback's
+moves and counts brought back; the pointer rows stay on the card) and
+``anchors_sweeps`` (hit sets swept) are always there, 0 where nothing
+counted; the exact aligner's spans are ``rechaos``, with ``chaos`` (the
+native CHAOS of every pair a level), ``anchors_parse`` and
+``anchors_device`` inside it, ``order_prepare``, ``order_device`` and
+``order_finish``.
 """
 from __future__ import annotations
 
@@ -35,19 +39,15 @@ import shutil
 import sys
 import tempfile
 
-from ..align import anchors_device
 from ..core import timings
-from ..core.platform import GOTOH_FLUSHES, resolve_device
-from ..kernels import order_device
+from ..core.platform import resolve_device
 from ..variants import caller
 from .sibelia import write_timings
 from .sibelia import run as sibelia_run
 
-
-def _exact_counts() -> tuple[int, int, int, int]:
-    return (order_device.STATS["device_jobs"],
-            order_device.STATS["host_fallback"], order_device.ROW_BYTES[0],
-            len(anchors_device.HITS_PER_SWEEP))
+# counters the dump always holds
+COUNTERS = ("gotoh_flushes", "gotoh_pairs", "order_device_jobs",
+            "order_host_fallback", "order_row_bytes", "anchors_sweeps")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,6 +78,11 @@ def _sibelia_argv(args, outdir: str) -> list[str]:
 
 
 def run(argv: list[str]) -> int:
+    with timings.run_scope():  # one record, the Sibelia stage's included
+        return _run(argv)
+
+
+def _run(argv: list[str]) -> int:
     args = build_parser().parse_args(argv)
     try:
         device = resolve_device()
@@ -85,7 +90,6 @@ def run(argv: list[str]) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
-    counts_before = _exact_counts()
     cleanup = False
     if args.outdir is None:
         if args.tempdir is None:
@@ -152,14 +156,8 @@ def run(argv: list[str]) -> int:
                 caller.write_alignments_maf(alignment_list, h)
         return 0
     finally:
-        exact = [now - before for now, before in zip(_exact_counts(),
-                                                      counts_before)]
-        write_timings({"gotoh_flushes": len(GOTOH_FLUSHES),
-                       "gotoh_pairs": sum(GOTOH_FLUSHES),
-                       "order_device_jobs": exact[0],
-                       "order_host_fallback": exact[1],
-                       "order_row_bytes": exact[2],
-                       "anchors_sweeps": exact[3]})
+        write_timings({name: timings._ACC.get(name, 0)
+                       for name in COUNTERS})
         if cleanup:
             shutil.rmtree(temp_dir, ignore_errors=True)
 

@@ -9,7 +9,9 @@ through the port's ``BlockFinder`` on the device that
 the newest ``stage_*.ckpt`` there, as the JAX CLI does.
 ``SIBELIA_TPU_PROFILE_DIR=<dir>`` holds a ``torch.profiler`` window (the
 CPU, and the card's kernels on a card) over the stages and the output, and
-writes it as a Chrome trace, ``sibelia.pt.trace.json``, into the directory.
+writes it as a Chrome trace, ``sibelia.pt.trace.json``, into the directory,
+with the program's spans of the window (``core/timings.py``'s log) as a
+process of their own, ``program spans``.
 
 ``SIBELIA_TPU_SHARDED=N`` runs the enumerations and the re-prefilter over a
 mesh of N shards (``parallel/``).  ``SIBELIA_TPU_COORD``,
@@ -44,8 +46,14 @@ the engine's node and sequence arrays and the ranking arenas carve.  The slab ta
 that exist, else plain pages; the pool is never grown.
 
 ``SIBELIA_TPU_TRACE=1`` prints one ``[trace] stage`` line a simplification
-stage to stderr, as the JAX CLI does.  ``SIBELIA_TPU_TIMINGS=<path>`` dumps the per-phase seconds of
-``core/timings.py`` with the kernel launch counts.
+stage to stderr, as the JAX CLI does.  ``SIBELIA_TPU_TIMINGS=<path>`` dumps
+the run's record of ``core/timings.py`` (span seconds and counters: among
+them ``sync_wait`` and ``syncs_<tag>``, the blocking copies between host
+and card; ``engine_sweep`` with the native engine's ``sweep_detect``,
+``sweep_apply``, ``sweep_prefilter``, ``sweep_iterations``, ``sweep_bulges``,
+``wave_detections``, ``wave_stale``, ``wave_resume``, ``wave_uncached``
+and, under ``SIBELIA_TPU_PROF=2``, its per-id split ``sweep_prof_*``;
+``reprefilter``; ``enum_host``) with the kernel launch counts.
 """
 from __future__ import annotations
 
@@ -65,7 +73,7 @@ from ..blocks.finder import BlockFinder, load_checkpoint, save_checkpoint
 from ..blocks.postprocess import glue_stripes
 from ..core import timings
 from ..core.config import MAX_INPUT_SIZE, PRESETS, read_stage_file
-from ..core.platform import LAUNCHES, SYNC_COUNTS, resolve_device
+from ..core.platform import LAUNCHES, resolve_device
 from ..core.progress import make_progress_bar
 from ..io import writers
 from ..index.enumeration import host_route, supergenome_rows
@@ -187,8 +195,12 @@ def _spill_dir(args, stage, total: int) -> str | None:
 
 
 def run(argv: list[str]) -> int:
+    with timings.run_scope():  # each run dumps its own record
+        return _run(argv)
+
+
+def _run(argv: list[str]) -> int:
     args = build_arg_parser().parse_args(argv)
-    timings.reset()  # each run dumps its own phases
     spill = prof = None
     multiproc = False
     try:
@@ -374,7 +386,7 @@ def _output(path: str, is_writer: bool):
 def _open_profile(device):
     """Under SIBELIA_TPU_PROFILE_DIR=<dir>, start a torch.profiler window
     over the CPU (and the card's kernels and copies on a card); returns
-    (profiler, dir) for ``_close_profile``, or None."""
+    (profiler, dir, the log's length) for ``_close_profile``, or None."""
     prof_dir = os.environ.get("SIBELIA_TPU_PROFILE_DIR")
     if not prof_dir:
         return None
@@ -384,25 +396,41 @@ def _open_profile(device):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
-    return prof, prof_dir
+    return prof, prof_dir, len(timings.LOG)
 
 
-def _close_profile(prof, prof_dir: str) -> None:
-    """End the window and write it as a Chrome trace into prof_dir."""
+def _close_profile(prof, prof_dir: str, first: int) -> None:
+    """End the window and write it as a Chrome trace into prof_dir, with
+    the spans the window logged from record `first` on."""
     prof.stop()
     os.makedirs(prof_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(prof_dir, "sibelia.pt.trace.json"))
+    path = os.path.join(prof_dir, "sibelia.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    # the trace's times are microseconds from its base on the same clock
+    base = trace.get("baseTimeNanoseconds", 0)
+    events = trace.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": "spans",
+                   "args": {"name": "program spans"}})
+    for name, start, end, parent, run in timings.log_records(first):
+        events.append({"ph": "X", "cat": "program_span", "name": name,
+                       "pid": "spans", "tid": 0,
+                       "ts": (start - base) / 1e3, "dur": (end - start) / 1e3,
+                       "args": {"parent": parent, "run": run}})
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def write_timings(extra: dict | None = None) -> None:
-    """Under SIBELIA_TPU_TIMINGS=<path>, write the phase seconds with the
-    sync and launch counts (and `extra`) there as JSON; a later call
-    rewrites the file with the counts as they stand then."""
+    """Under SIBELIA_TPU_TIMINGS=<path>, write the run's record (span
+    seconds and counters) with the launch counts (and `extra`) there as
+    JSON; a later call rewrites the file with the record as it stands
+    then."""
     path = os.environ.get("SIBELIA_TPU_TIMINGS")
     if not path:
         return
     table = timings.snapshot()
-    table.update({"syncs_" + tag: n for tag, n in SYNC_COUNTS.items()})
     table.update({"launches_" + name: n for name, n in LAUNCHES.items()})
     table.update(extra or {})
     try:

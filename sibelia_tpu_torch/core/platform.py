@@ -9,11 +9,12 @@ CPU on its own.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 
 import torch
 
-# ``SIBELIA_TPU_COUNT_SYNCS=1``: blocking host<->device transfers by tag
-SYNC_COUNTS: dict[str, int] = {}
+from . import timings
+
 # kernel name -> launches on the card; each wrapper adds one per launch
 LAUNCHES: dict[str, int] = {}
 # pairs in each gap batch the fast aligner closed, in order
@@ -44,9 +45,14 @@ def card_free_bytes(device: torch.device) -> int | None:
             - torch.cuda.memory_allocated(device))
 
 
-def note_sync(tag: str, n: int = 1) -> None:
-    if os.environ.get("SIBELIA_TPU_COUNT_SYNCS") == "1":
-        SYNC_COUNTS[tag] = SYNC_COUNTS.get(tag, 0) + n
+@contextmanager
+def sync_wait(tag: str, n: int = 1):
+    """A blocking copy between host and device (`n` of them) in the block:
+    its seconds go to the span ``sync_wait``, its count to the counter
+    ``syncs_<tag>``."""
+    with timings.phase("sync_wait"):
+        yield
+    timings.add("syncs_" + tag, n)
 
 
 def note_launch(name: str) -> None:
@@ -55,9 +61,10 @@ def note_launch(name: str) -> None:
 
 def note_flush(pairs: int) -> None:
     GOTOH_FLUSHES.append(pairs)
+    timings.add("gotoh_flushes", 1)
+    timings.add("gotoh_pairs", pairs)
 
 
 def reset_counts() -> None:
-    SYNC_COUNTS.clear()
     LAUNCHES.clear()
     GOTOH_FLUSHES.clear()

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.convert import pack_sort_key, unpack_sort_key
-from ..core.platform import card_free_bytes, note_sync
+from ..core.platform import card_free_bytes, sync_wait
 from ..kernels.enum_scan import enum_segment_scan
 from .ranking import _pack_plan
 from .ranking_device import kmer_ranks, next_separator, packed_keys
@@ -150,8 +150,8 @@ def candidate_scan(codes: torch.Tensor, pos: torch.Tensor, ids: torch.Tensor,
         cand[v[edge]] = True
     del edge
     pair_budget = max(PAIR_ROW_BUDGET * n, (card_free_bytes(dev) or 0) // 2)
-    total = int(reach.sum())
-    note_sync("candidate_pairs")
+    with sync_wait("candidate_pairs"):
+        total = int(reach.sum())
     ranges = [(0, B + 1, total)]
     if PAIR_BYTES * total > pair_budget:
         ranges = _owner_ranges(v, reach, B, max(pair_budget // PAIR_BYTES, 1))
@@ -192,13 +192,14 @@ def _owner_ranges(v: torch.Tensor, reach: torch.Tensor, B: int,
     counts = []
     while total - before > per_range:
         # the range ends before the first id that passes the budget
-        hi = max(int(torch.searchsorted(cum, before + per_range,
-                                        right=True)), cuts[-1] + 1)
-        note_sync("candidate_ranges")
+        with sync_wait("candidate_ranges"):
+            hi = max(int(torch.searchsorted(cum, before + per_range,
+                                            right=True)), cuts[-1] + 1)
         if hi > B:
             break
         cuts.append(hi)
-        counts.append(int(cum[hi - 1]) - before)
+        with sync_wait("candidate_ranges"):
+            counts.append(int(cum[hi - 1]) - before)
         before += counts[-1]
     cuts.append(B + 1)
     counts.append(total - before)

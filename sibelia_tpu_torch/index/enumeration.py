@@ -49,7 +49,7 @@ import torch
 
 from ..core import timings
 from ..core.convert import download, to_numpy, to_tensor
-from ..core.platform import note_sync, resolve_device
+from ..core.platform import resolve_device, sync_wait
 from ..parallel.sharded import requested_mesh
 from .enum_device import (candidate_scan, card_free_bytes,
                           fused_enumeration)
@@ -219,7 +219,8 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
             return enumerate_bifurcations_host(chromosomes, k)
         from ..parallel.sharded_enum import enumerate_bifurcations_sharded
         return enumerate_bifurcations_sharded(chromosomes, k, mesh)
-    codes, block_starts = build_supergenome(chromosomes)
+    with timings.phase("enum_host"):
+        codes, block_starts = build_supergenome(chromosomes)
     why = host_route(codes.shape[0], k, device)
     if why is not None:
         warnings.warn(why + "; falling back to the host enumeration",
@@ -235,15 +236,15 @@ def enumerate_on_device(codes: np.ndarray, block_starts: np.ndarray,
     """The single-device route of ``enumerate_bifurcations`` over a built
     supergenome, with no gate."""
     n = codes.shape[0]
-    codes_d = to_tensor(codes, device)
-    note_sync("enum_upload")
+    with sync_wait("enum_upload"):
+        codes_d = to_tensor(codes, device)
     pos_d, id_d, n_sel_d, n_groups_d = fused_enumeration(codes_d, k)
     # one blocking copy: the two counts and the first rows of the
     # selection, all of it up to HEAD_ROWS supergenome rows (n_sel <= n)
     m = min(n, HEAD_ROWS)
-    head = download(torch.cat([n_sel_d.view(1), n_groups_d.view(1),
-                               pos_d[:m], id_d[:m]]), "enum_head")
-    note_sync("enum_fetch")
+    with sync_wait("enum_fetch"):
+        head = download(torch.cat([n_sel_d.view(1), n_groups_d.view(1),
+                                   pos_d[:m], id_d[:m]]), "enum_head")
     ns, count = int(head[0]), int(head[1])
     if ns == 0:
         return _empty_enumeration()
@@ -255,13 +256,14 @@ def enumerate_on_device(codes: np.ndarray, block_starts: np.ndarray,
     if k <= 32 and min_branch is not None and min_branch > 1:
         cand_d = candidate_scan(codes_d, pos_d[:ns], id_d[:ns], k,
                                 int(min_branch), ns)
-        cand = to_numpy(cand_d[:count]).astype(np.uint8)
-        note_sync("candidate_fetch")
+        with sync_wait("candidate_fetch"):
+            cand = to_numpy(cand_d[:count]).astype(np.uint8)
     if ns > m:
-        sel[m:] = to_numpy(pos_d[m:ns])
-        sel_ids[m:] = to_numpy(id_d[m:ns])
-        note_sync("enum_fetch", 2)
-    res = _map_selected(sel, sel_ids, count, block_starts, n_chr)
+        with sync_wait("enum_fetch", 2):
+            sel[m:] = to_numpy(pos_d[m:ns])
+            sel_ids[m:] = to_numpy(id_d[m:ns])
+    with timings.phase("enum_host"):
+        res = _map_selected(sel, sel_ids, count, block_starts, n_chr)
     res.candidates = cand
     return res
 

@@ -139,11 +139,13 @@ for _i, _a in enumerate(_SYM):
 
 # device-coverage accounting: device_jobs = band DPs sent to the device
 # path, host_fallback = pairs the traceback-budget/band gate sent to the
-# host engine.  Read via get_stats(); the variant caller logs it under
-# SIBELIA_TPU_TRACE=1 and the C-Sibelia CLI dumps it with its timings.
+# host engine.  Read via get_stats(); each is also a counter of
+# core/timings (order_device_jobs, order_host_fallback), which the C-Sibelia
+# CLI dumps.
 STATS = {"device_jobs": 0, "host_fallback": 0}
 # bytes the batches of this process brought back from the device: the
-# moves and their counts (pointer rows stay there)
+# moves and their counts (pointer rows stay there); the counter
+# order_row_bytes of core/timings
 ROW_BYTES = [0]
 
 
@@ -223,8 +225,10 @@ def _prepare_job(lib, seq1: bytes, seq2: bytes, anchors_text: str,
             or wmax * ndp > _ROWS_BUDGET_BYTES):
         lib.le_order_release(h)
         STATS["host_fallback"] += 1
+        timings.add("order_host_fallback", 1)
         return None
     STATS["device_jobs"] += 1
+    timings.add("order_device_jobs", 1)
     band = np.empty((3, nd), np.int32)
     lib.le_order_band(h, band[0].ctypes.data, band[1].ctypes.data,
                       band[2].ctypes.data)
@@ -911,6 +915,7 @@ def order_moves(jobs: list[_Job], device: torch.device) -> list[np.ndarray]:
         flat = download(both, "order_moves")
         moves, counts = flat[:n], flat[n:].view(np.int32)
         ROW_BYTES[0] += both.numel()
+        timings.add("order_row_bytes", both.numel())
         for b, job in enumerate(batch):
             end = int(table[b, T_MOVES]) + job.nd
             # a copy: the pinned buffer serves the next batch

@@ -116,6 +116,8 @@ def load() -> ctypes.CDLL | None:
     lib.engine_set_reprefilter.restype = None
     lib.engine_set_reprefilter.argtypes = [ctypes.c_void_p,
                                            REPREFILTER_CFUNC]
+    lib.engine_sweep_stats.restype = ctypes.c_int
+    lib.engine_sweep_stats.argtypes = [ctypes.c_void_p] * 3
     lib.engine_live_node_count.restype = ctypes.c_int64
     lib.engine_live_node_count.argtypes = [ctypes.c_void_p]
     lib.engine_export_nodes.restype = None

@@ -24,6 +24,7 @@
 #include <cstring>
 #include <deque>
 #include <map>
+#include <mutex>
 #include <thread>
 #include <dlfcn.h>
 #include <unordered_map>
@@ -62,8 +63,6 @@ inline u64 mix64(u64 key) {
     return key;
 }
 
-// SIBELIA_TPU_PROF=2: per-sweep phase accumulators (detection walks vs
-// collapse application vs store cleanup), reported by the sweep loops.
 // ---------------------------------------------------------------------------
 // Slab-backed allocation for the big engine arrays.  When the ranking
 // library has reserved its hugetlb-pooled arena slab
@@ -111,14 +110,37 @@ typedef std::vector<int8_t, SlabAlloc<int8_t> > SVecI8;
 typedef std::vector<int32_t, SlabAlloc<int32_t> > SVecI32;
 typedef std::vector<uint32_t, SlabAlloc<uint32_t> > SVecU32;
 
+// SIBELIA_TPU_PROF=2: per-id phase accumulators of the sweep (detection
+// walks vs collapse application vs store cleanup), thread seconds.  Each
+// thread adds into its own; the wave's detection threads hand theirs to
+// the engine at the join, the calling thread at the end of the sweep, and
+// engine_sweep_stats reports the sum.
 struct SweepStats {
     double detect_ms = 0, pairs_ms = 0, collapse_ms = 0, cleanup_ms = 0;
     double erase_ms = 0, replace_ms = 0, update_ms = 0, walk_ms = 0;
     double vec_ms = 0, bits_ms = 0, map_ms = 0, interp_ms = 0;
     i64 n_ids = 0, n_collapse = 0, n_delta = 0, n_swept = 0;
     void reset() { *this = SweepStats(); }
+    void add(const SweepStats& o) {
+        detect_ms += o.detect_ms;
+        pairs_ms += o.pairs_ms;
+        collapse_ms += o.collapse_ms;
+        cleanup_ms += o.cleanup_ms;
+        erase_ms += o.erase_ms;
+        replace_ms += o.replace_ms;
+        update_ms += o.update_ms;
+        walk_ms += o.walk_ms;
+        vec_ms += o.vec_ms;
+        bits_ms += o.bits_ms;
+        map_ms += o.map_ms;
+        interp_ms += o.interp_ms;
+        n_ids += o.n_ids;
+        n_collapse += o.n_collapse;
+        n_delta += o.n_delta;
+        n_swept += o.n_swept;
+    }
 };
-thread_local SweepStats g_sweep_stats;  // per-thread (wave detection)
+thread_local SweepStats g_sweep_stats;
 bool prof2() {
     static int e = [] {
         const char* v = std::getenv("SIBELIA_TPU_PROF");
@@ -475,9 +497,26 @@ const i64 PROGRESS_STRIDE = 50;
 // sweep byte-exact (the sparse-sweep invariant).
 typedef long long (*ReprefilterFn)(uint8_t* cand_out, long long n_ids);
 
+// The engine's record of its sweeps (engine_sweep_stats), always kept: a
+// few clock reads a wave and an iteration, none an id.
+struct SweepRecord {
+    double detect_s = 0;     // wall time of the waves' parallel detection
+    double apply_s = 0;      // the rest of the iterations: in-order apply,
+                             // serial recomputes, the serial loop
+    double prefilter_s = 0;  // the host prefilter (no re-prefilter hook)
+    i64 iterations = 0, bulges = 0;
+    // ids detected in parallel, and of them those the apply loop found
+    // invalid and recomputed (stale) or resumed; uncached ids were flagged
+    // during the wave, after its detection, and ran serially
+    i64 detections = 0, stale = 0, resume = 0, uncached = 0;
+};
+
 struct Engine {
     ProgressFn progress_fn = nullptr;
     ReprefilterFn reprefilter_fn = nullptr;
+    SweepRecord rec;
+    SweepStats prof;  // SIBELIA_TPU_PROF=2
+    std::mutex prof_mu;
     int n_chr;
     std::vector<SVecU8> chars;
     std::vector<SVecI32> origpos;  // fits the 1 GB input cap
@@ -1237,11 +1276,16 @@ i64 process_bulges(Engine& e, i64 k, i64 min_branch, i64 bif_id,
     return ret;
 }
 
+double seconds_since(std::chrono::steady_clock::time_point t0) {
+    return std::chrono::duration<double>(std::chrono::steady_clock::now()
+                                         - t0).count();
+}
+
 i64 remove_bulges(Engine& e, i64 k, i64 min_branch, i64 bif_id) {
     return process_bulges(e, k, min_branch, bif_id, nullptr, nullptr);
 }
 
-// SIBELIA_TPU_WAVE: unset -> default window 8192; 0 -> wave scheduler
+// SIBELIA_TPU_WAVE: unset -> default window 1024; 0 -> wave scheduler
 // off (strictly serial sweep); N -> window of N candidate ids.
 i64 wave_window() {
     static i64 w = [] {
@@ -1256,10 +1300,6 @@ i64 wave_window() {
 // detection of a window of candidate ids, then in-order application
 // with epoch invalidation (stale ids recompute serially — identical
 // output, see the scheduler header above).
-i64 g_wave_skip1 = 0, g_wave_resume = 0, g_wave_stale = 0,
-    g_wave_uncached = 0;
-double g_wave_detect_ms = 0;
-
 i64 sweep_iteration_wave(Engine& e, i64 k, i64 min_branch, i64 win,
                          std::vector<DetectResult>& results) {
     i64 total = 0;
@@ -1285,6 +1325,12 @@ i64 sweep_iteration_wave(Engine& e, i64 k, i64 min_branch, i64 win,
                     process_bulges(e, k, min_branch, wids[w], &results[w],
                                    nullptr);
                 }
+                if (t > 0 && prof2()) {
+                    // this thread ends here: hand its split to the engine
+                    std::lock_guard<std::mutex> lock(e.prof_mu);
+                    e.prof.add(g_sweep_stats);
+                    g_sweep_stats.reset();
+                }
             };
             std::chrono::steady_clock::time_point dt0 =
                 std::chrono::steady_clock::now();
@@ -1296,8 +1342,9 @@ i64 sweep_iteration_wave(Engine& e, i64 k, i64 min_branch, i64 win,
                 detect_range(0);
                 for (std::thread& x : th) x.join();
             }
-            g_wave_detect_ms += std::chrono::duration<double, std::milli>(
+            e.rec.detect_s += std::chrono::duration<double>(
                 std::chrono::steady_clock::now() - dt0).count();
+            e.rec.detections += (i64)wids.size();
             size_t w = 0;
             for (i64 id = cursor; id < hi; id++) {
                 while (w < wids.size() && wids[w] < id) w++;
@@ -1327,13 +1374,12 @@ i64 sweep_iteration_wave(Engine& e, i64 k, i64 min_branch, i64 win,
                 }
                 i64 r;
                 if (valid && d->state == 1) {
-                    g_wave_skip1++;
                     r = 0;
                 } else if (valid && d->state == 2) {
-                    g_wave_resume++;
+                    e.rec.resume++;
                     r = process_bulges(e, k, min_branch, id, nullptr, d);
                 } else {
-                    if (d != nullptr) g_wave_stale++; else g_wave_uncached++;
+                    if (d != nullptr) e.rec.stale++; else e.rec.uncached++;
                     r = process_bulges(e, k, min_branch, id, nullptr,
                                        nullptr);
                 }
@@ -1430,8 +1476,7 @@ void engine_set_bifs(void* handle, i64 max_id,
 
 i64 engine_simplify(void* handle, i64 k, i64 min_branch, i64 max_iterations) {
     Engine* e = (Engine*)handle;
-    const char* pv = std::getenv("SIBELIA_TPU_PROF");
-    bool prof = pv && pv[0] == '1';
+    g_sweep_stats.reset();
     i64 total = 0;
     i64 iterations = 0;
     // progress pacing as the reference dense loop (blockfinder.cpp:28-40)
@@ -1441,7 +1486,6 @@ i64 engine_simplify(void* handle, i64 k, i64 min_branch, i64 max_iterations) {
     if (e->progress_fn) e->progress_fn(0, 0);
     for (;;) {
         iterations++;
-        i64 before = total;
         std::chrono::steady_clock::time_point t0 =
             std::chrono::steady_clock::now();
         for (i64 id = 0; id <= e->max_id; id++) {
@@ -1453,19 +1497,14 @@ i64 engine_simplify(void* handle, i64 k, i64 min_branch, i64 max_iterations) {
                 e->progress_fn((long long)pprog, 1);
             }
         }
-        if (prof) {
-            double ms = std::chrono::duration<double, std::milli>(
-                            std::chrono::steady_clock::now() - t0)
-                            .count();
-            std::fprintf(stderr,
-                         "[prof] simplify k=%lld iter=%lld bulges=%lld"
-                         " %8.1f ms\n",
-                         (long long)k, (long long)iterations,
-                         (long long)(total - before), ms);
-        }
+        e->rec.apply_s += seconds_since(t0);
         if (!(total > 0 && iterations < max_iterations)) break;
     }
     if (e->progress_fn) e->progress_fn((long long)PROGRESS_STRIDE, 2);
+    e->rec.iterations += iterations;
+    e->rec.bulges += total;
+    e->prof.add(g_sweep_stats);
+    g_sweep_stats.reset();
     return total;
 }
 
@@ -1480,10 +1519,7 @@ i64 engine_simplify_sparse(void* handle, i64 k, i64 min_branch,
                            i64 max_iterations, const uint8_t* cand0,
                            i64 cand_len) {
     Engine* e = (Engine*)handle;
-    const char* pv = std::getenv("SIBELIA_TPU_PROF");
-    bool prof = pv && pv[0] == '1';
-    std::chrono::steady_clock::time_point t0 =
-        std::chrono::steady_clock::now();
+    g_sweep_stats.reset();
     if (cand0 != nullptr) {
         i64 m = cand_len < e->max_id + 1 ? cand_len : e->max_id + 1;
         e->visit_now.assign((size_t)e->max_id + 1, 0);
@@ -1495,20 +1531,14 @@ i64 engine_simplify_sparse(void* handle, i64 k, i64 min_branch,
             filled = e->reprefilter_fn(e->visit_now.data(),
                                        e->max_id + 1) != 0;
         }
-        if (!filled) prefilter_candidates(*e, k, min_branch, e->visit_now);
+        if (!filled) {
+            std::chrono::steady_clock::time_point t0 =
+                std::chrono::steady_clock::now();
+            prefilter_candidates(*e, k, min_branch, e->visit_now);
+            e->rec.prefilter_s += seconds_since(t0);
+        }
     }
     e->visit_next.assign((size_t)e->max_id + 1, 0);
-    if (prof) {
-        double ms = std::chrono::duration<double, std::milli>(
-                        std::chrono::steady_clock::now() - t0)
-                        .count();
-        i64 nc = 0;
-        for (size_t i = 0; i < e->visit_now.size(); i++) nc += e->visit_now[i];
-        std::fprintf(stderr,
-                     "[prof] candidates k=%lld %lld/%lld (%s) %8.1f ms\n",
-                     (long long)k, (long long)nc, (long long)(e->max_id + 1),
-                     cand0 ? "device" : "host", ms);
-    }
     e->tracking = true;
     e->mb_cur = min_branch;
     i64 total = 0;
@@ -1516,8 +1546,9 @@ i64 engine_simplify_sparse(void* handle, i64 k, i64 min_branch,
     if (e->progress_fn) e->progress_fn(0, 0);
     for (;;) {
         iterations++;
-        i64 before = total;
-        t0 = std::chrono::steady_clock::now();
+        std::chrono::steady_clock::time_point t0 =
+            std::chrono::steady_clock::now();
+        double detect0 = e->rec.detect_s;
         if (wave_window() > 0) {
             static thread_local std::vector<DetectResult> results;
             total += sweep_iteration_wave(*e, k, min_branch, wave_window(),
@@ -1531,42 +1562,7 @@ i64 engine_simplify_sparse(void* handle, i64 k, i64 min_branch,
                 if (r > 0) e->visit_next[(size_t)id] = 1;
             }
         }
-        if (prof) {
-            double ms = std::chrono::duration<double, std::milli>(
-                            std::chrono::steady_clock::now() - t0)
-                            .count();
-            std::fprintf(stderr,
-                         "[prof] sparse k=%lld iter=%lld bulges=%lld"
-                         " %8.1f ms\n",
-                         (long long)k, (long long)iterations,
-                         (long long)(total - before), ms);
-        }
-        if (prof2()) {
-            std::fprintf(stderr,
-                         "[prof2] wave skip1=%lld resume=%lld stale=%lld"
-                         " uncached=%lld detect_par=%.0fms\n",
-                         (long long)g_wave_skip1, (long long)g_wave_resume,
-                         (long long)g_wave_stale, (long long)g_wave_uncached,
-                         g_wave_detect_ms);
-            g_wave_skip1 = g_wave_resume = g_wave_stale = g_wave_uncached = 0;
-            g_wave_detect_ms = 0;
-            SweepStats& s = g_sweep_stats;
-            std::fprintf(stderr,
-                         "[prof2] sweep iter=%lld ids=%lld col=%lld"
-                         " delta=%lld total=%.0fms pairs=%.0fms"
-                         " collapse=%.0fms cleanup=%.0fms"
-                         " erase=%.0f repl=%.0f upd=%.0f walk=%.0f"
-                         " vec=%.0f bits=%.0f map=%.0f interp=%.0f"
-                         " swept=%lld\n",
-                         (long long)iterations, (long long)s.n_ids,
-                         (long long)s.n_collapse, (long long)s.n_delta,
-                         s.detect_ms, s.pairs_ms,
-                         s.collapse_ms, s.cleanup_ms,
-                         s.erase_ms, s.replace_ms, s.update_ms, s.walk_ms,
-                         s.vec_ms, s.bits_ms, s.map_ms, s.interp_ms,
-                         (long long)s.n_swept);
-            s.reset();
-        }
+        e->rec.apply_s += seconds_since(t0) - (e->rec.detect_s - detect0);
         if (e->progress_fn)
             e->progress_fn(
                 (long long)std::min<i64>(
@@ -1594,16 +1590,44 @@ i64 engine_simplify_sparse(void* handle, i64 k, i64 min_branch,
                 filled = e->reprefilter_fn(cand.data(),
                                            e->max_id + 1) != 0;
             }
-            if (!filled)
+            if (!filled) {
+                t0 = std::chrono::steady_clock::now();
                 prefilter_candidates(*e, k, min_branch, cand,
                                      &e->visit_now);
+                e->rec.prefilter_s += seconds_since(t0);
+            }
             for (size_t i = 0; i < e->visit_now.size(); i++)
                 e->visit_now[i] &= cand[i];
         }
     }
     if (e->progress_fn) e->progress_fn((long long)PROGRESS_STRIDE, 2);
     e->tracking = false;
+    e->rec.iterations += iterations;
+    e->rec.bulges += total;
+    e->prof.add(g_sweep_stats);
+    g_sweep_stats.reset();
     return total;
+}
+
+// The engine's sweep record since engine_create: secs[0..2] the waves'
+// parallel detection, the application and the host prefilter (wall
+// seconds); counts[0..5] iterations, bulges, wave detections, stale,
+// resumed and uncached ids.  Under SIBELIA_TPU_PROF=2 (returns 1) also
+// the per-id split, secs[3..14] and counts[6..9] (SweepStats order).
+int engine_sweep_stats(void* handle, double* secs, i64* counts) {
+    Engine* e = (Engine*)handle;
+    const SweepRecord& r = e->rec;
+    const SweepStats& p = e->prof;
+    double s[15] = {r.detect_s, r.apply_s, r.prefilter_s,
+                    p.detect_ms, p.pairs_ms, p.collapse_ms, p.cleanup_ms,
+                    p.erase_ms, p.replace_ms, p.update_ms, p.walk_ms,
+                    p.vec_ms, p.bits_ms, p.map_ms, p.interp_ms};
+    for (int i = 3; i < 15; i++) s[i] /= 1000.0;
+    i64 c[10] = {r.iterations, r.bulges, r.detections, r.stale, r.resume,
+                 r.uncached, p.n_ids, p.n_collapse, p.n_delta, p.n_swept};
+    std::memcpy(secs, s, sizeof(s));
+    std::memcpy(counts, c, sizeof(c));
+    return prof2() ? 1 : 0;
 }
 
 void engine_set_progress(void* handle, ProgressFn fn) {

@@ -30,7 +30,7 @@ import torch
 
 from ..core import timings
 from ..core.convert import to_numpy, to_tensor
-from ..core.platform import note_sync
+from ..core.platform import sync_wait
 from ..index.enum_device import candidate_scan
 from ..index.enum_device import _CAND_BAND
 from ..index.enumeration import build_supergenome
@@ -78,23 +78,57 @@ def device_reprefilter(lib, handle, n_chr: int, k: int, min_branch: int,
         ids_p = np.full(B, B, dtype=np.int64)
         pos_p[:m] = sg[order]
         ids_p[:m] = bif[order]
-        note_sync("reprefilter_upload", 3)
-        cand = sharded_candidate_scan(codes, pos_p, ids_p, k, min_branch, m,
-                                      mesh)
-        note_sync("reprefilter_fetch")
-        return to_numpy(cand[:n_ids]).astype(np.uint8)
+        # the scan uploads its three arrays to the shards itself
+        with sync_wait("reprefilter_upload", 3):
+            cand = sharded_candidate_scan(codes, pos_p, ids_p, k,
+                                          min_branch, m, mesh)
+        with sync_wait("reprefilter_fetch"):
+            return to_numpy(cand[:n_ids]).astype(np.uint8)
     B = max(m, n_ids)
     pos_p = np.full(B, n, dtype=np.int64)
     ids_p = np.full(B, B, dtype=np.int64)
     pos_p[:m] = block_starts[block] + local
     ids_p[:m] = bif
-    pos_d, perm = torch.sort(to_tensor(pos_p, device))
-    ids_d = to_tensor(ids_p, device)[perm]
-    note_sync("reprefilter_upload", 3)
-    cand = candidate_scan(to_tensor(codes, device), pos_d, ids_d, k,
-                          min_branch, m)
-    note_sync("reprefilter_fetch")
-    return to_numpy(cand[:n_ids]).astype(np.uint8)
+    with sync_wait("reprefilter_upload", 3):
+        pos_d, perm = torch.sort(to_tensor(pos_p, device))
+        ids_d = to_tensor(ids_p, device)[perm]
+        codes_d = to_tensor(codes, device)
+    cand = candidate_scan(codes_d, pos_d, ids_d, k, min_branch, m)
+    with sync_wait("reprefilter_fetch"):
+        return to_numpy(cand[:n_ids]).astype(np.uint8)
+
+
+# engine_sweep_stats: seconds (wall) and counts of the engine's sweeps,
+# since its creation, under these names in core/timings
+SWEEP_SECONDS = ("sweep_detect", "sweep_apply", "sweep_prefilter")
+SWEEP_COUNTS = ("sweep_iterations", "sweep_bulges", "wave_detections",
+                "wave_stale", "wave_resume", "wave_uncached")
+# the per-id split under SIBELIA_TPU_PROF=2 (SweepStats; thread seconds,
+# the detection threads' included)
+PROF_SECONDS = ("detect", "pairs", "collapse", "cleanup", "erase", "replace",
+                "update", "walk", "vec", "bits", "map", "interp")
+PROF_COUNTS = ("ids", "collapses", "deltas", "swept")
+
+
+def record_sweep_stats(lib, handle) -> None:
+    """Add the engine's sweep record (``engine_sweep_stats``) to
+    ``core/timings``: the wave's parallel detection, the application
+    (in-order apply and serial recomputes), the host prefilter and the
+    counters; under SIBELIA_TPU_PROF=2 also the per-id split as
+    ``sweep_prof_*``."""
+    secs = (ctypes.c_double * (len(SWEEP_SECONDS) + len(PROF_SECONDS)))()
+    counts = (ctypes.c_int64 * (len(SWEEP_COUNTS) + len(PROF_COUNTS)))()
+    deep = lib.engine_sweep_stats(handle, secs, counts)
+    n_s, n_c = len(SWEEP_SECONDS), len(SWEEP_COUNTS)
+    for name, v in zip(SWEEP_SECONDS, secs[:n_s]):
+        timings.add(name, v)
+    for name, v in zip(SWEEP_COUNTS, counts[:n_c]):
+        timings.add(name, int(v))
+    if deep:
+        for name, v in zip(PROF_SECONDS, secs[n_s:]):
+            timings.add("sweep_prof_" + name, v)
+        for name, v in zip(PROF_COUNTS, counts[n_c:]):
+            timings.add("sweep_prof_" + name, int(v))
 
 
 def simplify(seq, enum, k: int, min_branch: int, max_iterations: int,
@@ -156,8 +190,9 @@ def simplify(seq, enum, k: int, min_branch: int, max_iterations: int,
             if errors:
                 return 0
             try:
-                bm = device_reprefilter(lib, handle, n_chr, k, min_branch,
-                                        int(n_ids), device)
+                with timings.phase("reprefilter"):
+                    bm = device_reprefilter(lib, handle, n_chr, k,
+                                            min_branch, int(n_ids), device)
             except BaseException as e:  # re-raised after the sweep
                 errors.append(e)
                 return 0
@@ -178,6 +213,7 @@ def simplify(seq, enum, k: int, min_branch: int, max_iterations: int,
                                                  cand_len)
         if errors:
             raise errors[0]
+        record_sweep_stats(lib, handle)
         with timings.phase("engine_writeback"):
             for c in range(n_chr):
                 ln = lib.engine_chr_len(handle, c)

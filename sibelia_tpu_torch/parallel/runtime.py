@@ -28,7 +28,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from ..core.platform import note_sync, resolve_device
+from ..core.platform import resolve_device, sync_wait
 from .sharded import Mesh, _nbytes
 
 
@@ -107,8 +107,8 @@ class ProcessGroupMesh(Mesh):
         (x,), (c,) = xs, counts
         recv_counts = torch.empty_like(c)
         dist.all_to_all_single(recv_counts, c.contiguous())
-        both = torch.cat([c, recv_counts]).tolist()
-        note_sync("enum_scalar")
+        with sync_wait("enum_scalar"):
+            both = torch.cat([c, recv_counts]).tolist()
         send, got = both[:self.size], both[self.size:]
         out = x.new_empty((sum(got),) + tuple(x.shape[1:]))
         dist.all_to_all_single(out, x.contiguous(), output_split_sizes=got,
@@ -122,8 +122,8 @@ class ProcessGroupMesh(Mesh):
         sizes = [torch.zeros(1, dtype=torch.int64, device=x.device)
                  for _ in range(self.size)]
         dist.all_gather(sizes, torch.tensor([x.shape[0]], device=x.device))
-        sizes = torch.cat(sizes).tolist()
-        note_sync("enum_scalar")
+        with sync_wait("enum_scalar"):
+            sizes = torch.cat(sizes).tolist()
         top = max(sizes)
         pad = x.new_zeros((top,) + tuple(x.shape[1:]))
         pad[:x.shape[0]] = x

@@ -25,7 +25,7 @@ overflow retry (``sibelia_tpu/parallel/sharded_enum.py``, ``_exchange`` and
 the loop of ``enumerate_bifurcations_sharded``): the counts go first, then
 exactly the rows, so nothing overflows and nothing is sent twice.  The
 counts come to the host to cut the rows: one blocking copy an exchange,
-counted by ``note_sync`` as ``enum_scalar``.
+counted by ``sync_wait`` as ``syncs_enum_scalar``.
 
 ``exchanged_bytes`` adds up the bytes that moved between shards (rows a
 shard sends to itself are not counted).
@@ -37,7 +37,7 @@ import sys
 
 import torch
 
-from ..core.platform import note_sync, resolve_device
+from ..core.platform import resolve_device, sync_wait
 
 
 class Mesh:
@@ -72,8 +72,8 @@ class Mesh:
         n = self.size
         # one blocking copy for every shard's counts
         dev0 = self.devices[0]
-        splits = torch.stack([c.to(dev0) for c in counts]).tolist()
-        note_sync("enum_scalar")
+        with sync_wait("enum_scalar"):
+            splits = torch.stack([c.to(dev0) for c in counts]).tolist()
         parts = [x.split(sp) for x, sp in zip(xs, splits)]
         out = []
         for j in range(n):

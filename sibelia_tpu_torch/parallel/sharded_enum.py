@@ -40,7 +40,7 @@ import torch
 
 from ..core import timings
 from ..core.convert import download, pack_sort_key, to_tensor
-from ..core.platform import note_sync
+from ..core.platform import sync_wait
 from ..index.enumeration import (BifEnumeration, _empty_enumeration,
                                  _map_selected, build_supergenome)
 from ..index.ranking import _pack_plan
@@ -258,25 +258,28 @@ def enumerate_bifurcations_sharded(chromosomes: list, k: int,
         raise ValueError("sharded enumeration: supergenome exceeds int32 "
                          "position space")
     timings.add("sharded_enum_calls", 1)
-    codes, block_starts = build_supergenome(chromosomes)
+    with timings.phase("enum_host"):
+        codes, block_starts = build_supergenome(chromosomes)
     n0 = codes.shape[0]
     L = shard_rows(n0, mesh.size, k)
     padded = np.zeros(mesh.size * L, dtype=np.uint8)
     padded[:n0] = codes
-    shards = [to_tensor(padded[d * L:(d + 1) * L], mesh.devices[d])
-              for d in mesh.local_shards()]
-    note_sync("enum_upload")
+    with sync_wait("enum_upload"):
+        shards = [to_tensor(padded[d * L:(d + 1) * L], mesh.devices[d])
+                  for d in mesh.local_shards()]
     selected, total_d = _build_step(k, L, mesh, shards)
     del shards
     rows = mesh.gather_first(selected)
     rows = rows[torch.argsort(rows[:, 0])]
-    flat = download(torch.cat([total_d.reshape(1), rows.t().reshape(-1)]),
-                    "enum_sharded")
-    note_sync("enum_fetch")
+    with sync_wait("enum_fetch"):
+        flat = download(torch.cat([total_d.reshape(1),
+                                   rows.t().reshape(-1)]), "enum_sharded")
     count = int(flat[0])
     if count == 0:
         return _empty_enumeration()
     ns = rows.shape[0]
     sel = flat[1:1 + ns].copy()
     sel_ids = flat[1 + ns:1 + 2 * ns].astype(np.uint32)
-    return _map_selected(sel, sel_ids, count, block_starts, len(chromosomes))
+    with timings.phase("enum_host"):
+        return _map_selected(sel, sel_ids, count, block_starts,
+                             len(chromosomes))

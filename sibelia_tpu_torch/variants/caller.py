@@ -400,14 +400,6 @@ def _batch_align_unique(annotated_block, processes=1,
         return {}
     if use_dev:
         rows = lagan_exact.align_pairs_exact_batch(pairs, processes, device)
-        if os.environ.get("SIBELIA_TPU_TRACE") == "1":
-            import sys
-            from ..kernels.order_device import get_stats
-            st = get_stats()
-            print(f"[trace] order device coverage: "
-                  f"{st['device_jobs']} device / "
-                  f"{st['host_fallback']} host-fallback band DPs",
-                  file=sys.stderr)
     else:
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=processes) as pool:

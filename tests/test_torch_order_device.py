@@ -18,6 +18,7 @@ import torch
 
 from test_torch_reference_libs import REFERENCE_LIBS  # noqa: F401
 from sibelia_tpu_torch.align import lagan_exact as port_lagan
+from sibelia_tpu_torch.core import timings
 from sibelia_tpu_torch.core.platform import LAUNCHES
 from sibelia_tpu_torch.kernels import order_device as port
 from sibelia_tpu_torch.native import _take_string, lagan_order, load_lagan
@@ -490,11 +491,13 @@ def test_batch_align_unique_takes_the_device_path_and_traces(monkeypatch,
     monkeypatch.delenv("SIBELIA_TPU_DEVICE_ORDER", raising=False)
     want = {7: port_lagan.align_pair_exact(sa, sb)}  # the native stages
     monkeypatch.setenv("SIBELIA_TPU_DEVICE_ORDER", "1")
-    monkeypatch.setenv("SIBELIA_TPU_TRACE", "1")
     before = port.get_stats()["device_jobs"]
+    counted = timings._ACC.get("order_device_jobs", 0)
     assert caller._batch_align_unique(annotated, 1, CPU) == want
     assert port.get_stats()["device_jobs"] == before + 1
-    assert "order device coverage" in capsys.readouterr().err
+    # the run's record counts the band DP (the trace line is gone)
+    assert timings._ACC["order_device_jobs"] == counted + 1
+    assert "order device coverage" not in capsys.readouterr().err
     # a serial run with the band DP on the host has nothing to pre-align
     monkeypatch.setenv("SIBELIA_TPU_DEVICE_ORDER", "0")
     assert caller._batch_align_unique(annotated, 1, CPU) == {}
