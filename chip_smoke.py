@@ -8,6 +8,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --profile DIR    # step breakdown of phase 4 only
     python3 chip_smoke.py --cards          # phase 4c's CLI runs over cards
     python3 chip_smoke.py --memory         # the card's peak up to the rule
+    python3 chip_smoke.py --trim           # phase 4d only: trim rounds
     python3 chip_smoke.py --parent DIR     # the smoke run; phases order,
                                            # anchors and csibelia_exact time
                                            # DIR's band DP, walks and sweep,
@@ -119,9 +120,10 @@ Phases, each of which fails the run:
               byte-identical to one card; and ``order_mfa_device_batch``
               over a pair mesh of two shards of the card on phase 3b's
               jobs, the unsharded call's text;
-  4d. trim    the crossover of trim_blocks' enumerations: ms a call of the
-              port's device enumeration on the card against its host
-              enumeration, on two related copies of 1 to 2,838,317 rows
+  4d. trim    the crossover of trim_blocks' rounds: ms a round (the
+              enumeration and the walk) by the numpy route, the native
+              round (the host route) and the card's enumeration with the
+              native walk, on two related copies of 1 to 2,838,317 rows
               (CROSSOVER_ROWS), identical results, with the CUDA kernels a
               card call launches and their device time;
   5. e2e      ``sibelia_tpu_torch.cli.sibelia -s loose -m 5000`` on 4 strains
@@ -249,6 +251,7 @@ ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 COMP = np.arange(256, dtype=np.uint8)
 COMP[list(b"ACGT")] = list(b"TGCA")
 MAIN_K, MAIN_MIN_BRANCH = 30, 150
+MAIN_MIN_SIZE = 500  # a trim round's min_size: C-Sibelia's -m 500
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, and the
 # float32 rate outside the tensor cores.  The data sheet lists no int32
 # rate; the card's is lower, so a bound reckoned with this one still holds.
@@ -1959,46 +1962,76 @@ def device_copy_ms(prof) -> float:
 
 
 def phase_trim(device, gpu: str) -> dict:
-    """The crossover of trim_blocks' enumerations: ms a call of the port's
-    device enumeration on the card (the route of ``trim_enumeration`` from
-    TRIM_CARD_MIN_ROWS rows on) against its host enumeration, on two
-    related copies at each of CROSSOVER_ROWS, with identical results; and
-    the kernels a card call launches, with their device time."""
+    """The crossover of trim_blocks' rounds: ms a round (the enumeration of
+    two related copies at k = MAIN_K and the walk) by each route, at each
+    of CROSSOVER_ROWS: the numpy route (``SIBELIA_TPU_NATIVE=0``'s), the
+    native round (the host route, ``native.trim_round``) and the card (the
+    port's device enumeration, the route of ``trim_enumeration`` from
+    TRIM_CARD_MIN_ROWS rows on, walked by ``native.trim_walk``), with
+    identical enumerations and walks; and the kernels a card call launches,
+    with their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from sibelia_tpu_torch.blocks.synteny import TRIM_CARD_MIN_ROWS
+    from sibelia_tpu_torch import native
+    from sibelia_tpu_torch.blocks import synteny
     from sibelia_tpu_torch.index import enumeration as port_enum
     table = {}
-    log(f"  rows: card ms, host ms, CUDA kernels a card call, their device "
-        f"ms, the segment scan's ({gpu}; TRIM_CARD_MIN_ROWS = "
-        f"{TRIM_CARD_MIN_ROWS})")
+    log(f"  rows: numpy, native and card ms a round, CUDA kernels a card "
+        f"call, their device ms, the segment scan's ({gpu}; "
+        f"TRIM_CARD_MIN_ROWS = {synteny.TRIM_CARD_MIN_ROWS})")
     for rows in CROSSOVER_ROWS:
         copies = trim_copies(rows)
         n = 1 + 2 * sum(len(c) + 1 for c in copies) if copies else 0
         reps = max(3, min(200, 400_000 // max(n, 1)))
-        card_ms, got = timed_host(lambda: port_enum.enumerate_bifurcations(
-            copies, MAIN_K, None, device), reps)
-        host_ms, want = timed_host(
-            lambda: port_enum.enumerate_bifurcations_host(copies, MAIN_K),
-            reps)
+        chars = (np.concatenate(copies) if copies
+                 else np.zeros(0, dtype=np.uint8))
+        lens = np.array([len(c) for c in copies], dtype=np.int64)
+        dirs = np.array([0, 1][:len(copies)], dtype=np.int8)
+
+        def numpy_round():
+            enum = port_enum.enumerate_numpy(
+                *port_enum.build_supergenome(copies), len(copies), MAIN_K)
+            return enum, synteny._trim_walk(lens, dirs, enum, MAIN_K,
+                                            MAIN_MIN_SIZE)
+
+        def card_round():
+            enum = port_enum.enumerate_bifurcations(copies, MAIN_K, None,
+                                                    device)
+            return enum, native.trim_walk(enum, lens, dirs, MAIN_K,
+                                          MAIN_MIN_SIZE)
+
+        numpy_ms, (want, want_walk) = timed_host(numpy_round, reps)
+        native_ms, got_walk = timed_host(lambda: native.trim_round(
+            chars, lens, dirs, MAIN_K, MAIN_MIN_SIZE), reps)
+        card_ms, (got, card_walk) = timed_host(card_round, reps)
         same_enumeration(got, want, same_dtypes=False)
+        same_enumeration(port_enum.enumerate_bifurcations_host(
+            copies, MAIN_K), want, same_dtypes=False)
+        for walk in (got_walk, card_walk):
+            if walk[0] != want_walk[0] or not np.array_equal(walk[1],
+                                                             want_walk[1]):
+                raise RuntimeError(f"trim walks differ at {rows} rows")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             port_enum.enumerate_bifurcations(copies, MAIN_K, None, device)
             torch.cuda.synchronize()
         launches, device_ms, scan_ms = (device_events(prof) if n
                                         else (0, 0.0, 0.0))
-        table[rows] = {"n": n, "card_ms": card_ms, "host_ms": host_ms,
-                       "kernels": launches, "device_ms": device_ms}
-        log(f"  {rows} ({n} rows): card {card_ms:.3f}, host {host_ms:.3f} "
-            f"({'card' if card_ms < host_ms else 'host'} ahead), "
+        table[rows] = {"n": n, "numpy_ms": numpy_ms, "native_ms": native_ms,
+                       "card_ms": card_ms, "kernels": launches,
+                       "device_ms": device_ms}
+        fastest = min(("numpy", numpy_ms), ("native", native_ms),
+                      ("card", card_ms), key=lambda t: t[1])[0]
+        log(f"  {rows} ({n} rows): numpy {numpy_ms:.4f}, native "
+            f"{native_ms:.4f}, card {card_ms:.4f} ({fastest} ahead), "
             f"{launches} kernels, {device_ms:.3f} device ms, the scan's "
             f"{scan_ms:.4f}; {got.pos[0].size + got.pos[1].size} "
             "instances, identical")
     ahead = [t["n"] for t in table.values()
-             if t["n"] and t["host_ms"] <= t["card_ms"]]
-    log(f"  host ahead at {ahead or 'no size'}: a size rule may send calls "
-        f"below {max(ahead) + 1 if ahead else 0} rows to the host")
+             if t["n"] and t["native_ms"] <= t["card_ms"]]
+    log(f"  native round ahead of the card at {ahead or 'no size'}: a size "
+        f"rule may send rounds below {max(ahead) + 1 if ahead else 0} rows "
+        "to the host")
     return table
 
 
@@ -2427,8 +2460,9 @@ def same_trees(got: str, want: str, what: str) -> dict[str, bytes]:
     return b
 
 
-TRIM_KEYS = ("trim_resolve", "trim_enum", "trim_walk", "trim_calls",
-             "trim_rows", "trim_card_calls", "trim_host_calls")
+TRIM_KEYS = ("trim_resolve", "trim_native", "trim_enum", "trim_walk",
+             "trim_calls", "trim_rows", "trim_card_calls", "trim_host_calls",
+             "trim_native_calls")
 
 
 def log_trim(what: str, phases: dict) -> None:
@@ -3384,6 +3418,8 @@ def main() -> int:
     ap.add_argument("--memory", action="store_true",
                     help="the card's peak memory of an enumeration against "
                          "rows, up to the 2^30-row gate, only")
+    ap.add_argument("--trim", action="store_true",
+                    help="phase 4d only: the trim rounds' crossover")
     args = ap.parse_args()
     t_run = time.perf_counter()
     import torch
@@ -3418,6 +3454,12 @@ def main() -> int:
         for line in nvcc.BUILD_LOG.get(name, "").splitlines():
             log(f"  {name}.cu: {line}")
 
+    if args.trim:
+        log(f"[trim] trim_blocks' rounds at k={MAIN_K}: numpy, native and "
+            "card a round, two related copies of 1 to 2,838,317 rows")
+        phase_trim(device, gpu)
+        log(f"  took {time.perf_counter() - t_run:.1f} s")
+        return 0
     if args.memory:
         t0 = time.perf_counter()
         strains = make_strains(MEMORY_COUNTS[-1], MEMORY_STRAIN, SEED)
@@ -3492,8 +3534,8 @@ def main() -> int:
         "single-card result")
     phase_sharded(device, strains, gpu, order)
     phase_done("sharded")
-    log(f"[trim] trim_blocks' enumerations at k={MAIN_K}: card against host "
-        "a call, two related copies of 1 to 2,838,317 rows")
+    log(f"[trim] trim_blocks' rounds at k={MAIN_K}: numpy, native and card "
+        "a round, two related copies of 1 to 2,838,317 rows")
     phase_trim(device, gpu)
     phase_done("trim")
     log("[e2e] sibelia_tpu_torch.cli.sibelia -s loose -m 5000, 4 x 2 Mbp, "

@@ -6,29 +6,32 @@ std::sort emulation (core/stdsort.py) because the reference's output
 depends on the exact permutation unstable sorts leave equal elements in.
 
 The whole-genome index is built on the device
-(``graph/indexed.py::build_index``), and so are ``trim_blocks``'s per-block
-mini-indexes (``trim_enumeration``), as the JAX package's device dispatch
-sends them.  The calls are made in the JAX package's order, so the
-GlibcRand stream that randomizes ambiguous bases is consumed as there.
-The three parts are the ``timings`` phases ``block_index``,
-``block_edges`` and ``block_trim``; inside the last, ``trim_resolve``
-(``resolve_overlap``), ``trim_enum`` (the enumerations) and ``trim_walk``
+(``graph/indexed.py::build_index``), and so are the per-block mini-indexes
+of ``trim_blocks``'s large rounds (``trim_enumeration``); a small round is
+one native call (``native/trim.cpp``).  The calls are made in the JAX
+package's order, so the GlibcRand stream that randomizes ambiguous bases
+is consumed as there.  The three parts are the ``timings`` phases
+``block_index``, ``block_edges`` and ``block_trim``; inside the last,
+``trim_resolve`` (``resolve_overlap``), ``trim_native`` (the native
+rounds), ``trim_enum`` (the other rounds' enumerations) and ``trim_walk``
 (the rest of ``trim_blocks`` and the commit of each block), with the
 counts ``trim_calls``, ``trim_rows`` (supergenome rows),
-``trim_card_calls`` and ``trim_host_calls``.
+``trim_card_calls``, ``trim_host_calls`` and ``trim_native_calls``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import native
 from ..core import timings
 from ..core.glibc_rand import GlibcRand
 from ..core.stdsort import group_by, std_sort
 from ..graph.indexed import build_index, randomize_ambiguous
 from ..graph.sequence import MutableSequence
 from ..index.enumeration import (BifEnumeration, enumerate_bifurcations,
-                                 enumerate_bifurcations_host)
+                                 enumerate_bifurcations_host,
+                                 supergenome_rows)
 from ..io.fasta import FASTARecord
 from .edges import Edge, list_edges
 from .instance import BlockInstance
@@ -37,10 +40,9 @@ POS_FREE = 0
 POS_OCCUPIED = 1
 _OO = (1 << 32) - 1  # reference: const size_t oo = UINT_MAX (synteny.cpp:42)
 # supergenome rows from which a block's copies are enumerated on the
-# device: below it the card's fixed cost a call (some 60-75 launches, about
-# 2 ms on an H100) exceeds the host's numpy enumeration, 0.22 ms at 413
-# rows, 2.31 ms at 8,193 and 2.72 ms at 12,289 (chip_smoke.py phase trim;
-# PERF.md)
+# device: where the card's fixed cost a call (some 60-85 launches) met the
+# host's numpy enumeration (chip_smoke.py phase trim; PERF.md, which also
+# times the native round below it against both)
 TRIM_CARD_MIN_ROWS = 12_289
 
 
@@ -91,19 +93,30 @@ def resolve_overlap(group: list[Edge], min_size: int,
     return now_block
 
 
-def trim_enumeration(chromosomes: list, k: int,
-                     device: torch.device | None) -> BifEnumeration:
-    """A block's mini-index: the device enumeration on `device` from
-    TRIM_CARD_MIN_ROWS supergenome rows on, the host enumeration below (an
-    empty block has no rows).  Counts ``trim_calls``, ``trim_rows`` and the
-    route, ``trim_card_calls`` or ``trim_host_calls``."""
-    rows = 1 + 2 * sum(len(c) + 1 for c in chromosomes) if chromosomes else 0
+def _on_card(rows: int) -> bool:
+    """The route of a trim round of `rows` supergenome rows: the card from
+    TRIM_CARD_MIN_ROWS rows on, the host below (an empty block has none)."""
+    return bool(rows) and rows >= TRIM_CARD_MIN_ROWS
+
+
+def _count_round(rows: int, card: bool) -> None:
     timings.add("trim_calls", 1)
     timings.add("trim_rows", rows)
-    if rows and rows >= TRIM_CARD_MIN_ROWS:
-        timings.add("trim_card_calls", 1)
+    timings.add("trim_card_calls" if card else "trim_host_calls", 1)
+
+
+def trim_enumeration(chromosomes: list, k: int,
+                     device: torch.device | None) -> BifEnumeration:
+    """A block's mini-index: the device enumeration on `device` on the card
+    route (``_on_card``), the host enumeration below.  Counts
+    ``trim_calls``, ``trim_rows`` and the route, ``trim_card_calls`` or
+    ``trim_host_calls``."""
+    rows = supergenome_rows(sum(len(c) for c in chromosomes),
+                            len(chromosomes)) if chromosomes else 0
+    card = _on_card(rows)
+    _count_round(rows, card)
+    if card:
         return enumerate_bifurcations(chromosomes, k, None, device)
-    timings.add("trim_host_calls", 1)
     return enumerate_bifurcations_host(chromosomes, k)
 
 
@@ -113,28 +126,59 @@ def trim_blocks(chr_list: list[FASTARecord], block: list[Edge], trim_k: int,
     """Trim each copy to the outermost trim_k-mer shared with another copy
     (reference: synteny.cpp:31-122). Mutates `block` in place; returns True
     if some copy had no shared k-mer at all (caller loops to fixpoint).
-    The copies are enumerated by ``trim_enumeration`` on `device` (None:
-    the run's device); the phases ``trim_enum`` (the enumeration) and
-    ``trim_walk`` (the rest) split the call's time."""
+
+    On the host route the enumeration and the walk are one native call
+    (``native.trim_round``, counted ``trim_native_calls``, the phase
+    ``trim_native``).  On the card route, and on the host under
+    SIBELIA_TPU_NATIVE=0, ``trim_enumeration`` enumerates the copies on
+    `device` (None: the run's device; phase ``trim_enum``) and the walk is
+    ``native.trim_walk``, or ``_trim_walk`` without the library; the phase
+    ``trim_walk`` holds the rest of the call."""
     with timings.phase("trim_walk"):
-        block_seq = []
-        for e in block:
-            s = chr_list[e.chr].sequence[e.original_position:
-                                         e.original_position
-                                         + e.original_length]
-            block_seq.append(s.encode())
-        seq = MutableSequence(block_seq)
+        copies = [chr_list[e.chr].sequence[e.original_position:
+                                           e.original_position
+                                           + e.original_length].encode()
+                  for e in block]
+        lens = np.fromiter(map(len, copies), np.int64, len(copies))
+        dirs = np.fromiter((e.direction for e in block), np.int8,
+                           len(block))
+        # one buffer for every copy: the draws run in (copy, position)
+        # order, as over the copies one by one
+        chars = np.frombuffer(b"".join(copies), dtype=np.uint8).copy()
         if rand is not None:
-            randomize_ambiguous(seq, rand)
-    with timings.phase("trim_enum"):
-        enum = trim_enumeration(seq.chars, trim_k, device)
+            randomize_ambiguous(MutableSequence([chars]), rand)
+    rows = supergenome_rows(chars.size, len(block)) if block else 0
+    res = None
+    if not _on_card(rows) and native.load() is not None:
+        with timings.phase("trim_native"):
+            res = native.trim_round(chars, lens, dirs, trim_k, min_size)
+        _count_round(rows, False)
+        timings.add("trim_native_calls", 1)
+    else:
+        views = np.split(chars, np.cumsum(lens)[:-1]) if block else []
+        with timings.phase("trim_enum"):
+            enum = trim_enumeration(views, trim_k, device)
+        with timings.phase("trim_walk"):
+            res = native.trim_walk(enum, lens, dirs, trim_k, min_size)
+            if res is None:
+                res = _trim_walk(lens, dirs, enum, trim_k, min_size)
     with timings.phase("trim_walk"):
-        return _trim_walk(block, seq, enum, trim_k, min_size)
+        drop, out = res
+        kept = []
+        for e, (keep, lo, length) in zip(block, out.tolist()):
+            if keep:
+                kept.append(Edge(e.chr, e.direction, e.start_vertex,
+                                 e.end_vertex, e.actual_position,
+                                 e.actual_length, e.original_position + lo,
+                                 length, e.first_char))
+        block[:] = kept
+    return drop
 
 
-def _trim_walk(block: list[Edge], seq: MutableSequence, enum: BifEnumeration,
-               trim_k: int, min_size: int) -> bool:
-    """The walk of ``trim_blocks`` over the block's enumeration.
+def _trim_walk(lens: np.ndarray, dirs: np.ndarray, enum: BifEnumeration,
+               trim_k: int, min_size: int) -> tuple[bool, np.ndarray]:
+    """The walk of ``trim_blocks`` over the block's enumeration in numpy
+    (SIBELIA_TPU_NATIVE=0), with ``native.trim_walk``'s (drop, out).
 
     The reference walks every element of every copy with a per-position
     store probe; the serial update rule — strictly smaller sum, or equal
@@ -142,8 +186,6 @@ def _trim_walk(block: list[Edge], seq: MutableSequence, enum: BifEnumeration,
     over (sum, bifId, walk index), so the whole walk vectorizes as one
     expand-and-argmin over (own mark) x (other-copy instance) pairs."""
     # flat node table (both strands, positive-frame coordinates)
-    lens = np.asarray([seq.chr_len(c) for c in range(seq.n_chr)],
-                      dtype=np.int64)
     parts_s, parts_c, parts_p, parts_b = [], [], [], []
     for strand in (0, 1):
         chrs = enum.chr[strand].astype(np.int64)
@@ -153,10 +195,10 @@ def _trim_walk(block: list[Edge], seq: MutableSequence, enum: BifEnumeration,
         parts_c.append(chrs)
         parts_p.append(coords)
         parts_b.append(enum.bif_id[strand].astype(np.int64))
-    n_s = np.concatenate(parts_s) if parts_s else np.zeros(0, np.int8)
-    n_c = np.concatenate(parts_c) if parts_c else np.zeros(0, np.int64)
-    n_p = np.concatenate(parts_p) if parts_p else np.zeros(0, np.int64)
-    n_b = np.concatenate(parts_b) if parts_b else np.zeros(0, np.int64)
+    n_s = np.concatenate(parts_s)
+    n_c = np.concatenate(parts_c)
+    n_p = np.concatenate(parts_p)
+    n_b = np.concatenate(parts_b)
 
     # group instances by bif id for partner expansion (searchsorted over
     # the sorted unique ids — bif ids are dense, but the mini-index can
@@ -168,16 +210,14 @@ def _trim_walk(block: list[Edge], seq: MutableSequence, enum: BifEnumeration,
     grp_ids = gb[grp_starts] if gb.size else np.zeros(0, np.int64)
     bounds = np.append(grp_starts, gb.size)
 
-    n_chr_blk = len(block)
-    dirs = np.asarray([e.direction for e in block], dtype=np.int64)
     k_begin_of = np.where(dirs == 0, 0, lens - 1)
     k_end_of = np.where(dirs == 0, lens - 1, 0)
 
     drop = False
-    ret: list[Edge] = []
-    for chr_i, e in enumerate(block):
-        d = e.direction
-        L = seq.chr_len(chr_i)
+    out = np.zeros((len(lens), 3), dtype=np.int64)
+    for chr_i in range(len(lens)):
+        d = int(dirs[chr_i])
+        L = int(lens[chr_i])
         begin_coord = 0 if d == 0 else L - 1
         end_coord = L - 1 if d == 0 else 0
         # own marks on strand d (the reference walks bif_at[d][chr_i])
@@ -238,15 +278,11 @@ def _trim_walk(block: list[Edge], seq: MutableSequence, enum: BifEnumeration,
             size = abs(trim_start - trim_end) + trim_k
             if size >= min_size:
                 te = trim_end + (trim_k - 1) if d == 0 else trim_end - (trim_k - 1)
-                start = e.original_position + min(trim_start, te)
-                end = e.original_position + max(trim_start, te) + 1
-                ret.append(Edge(e.chr, e.direction, e.start_vertex, e.end_vertex,
-                                e.actual_position, e.actual_length,
-                                start, end - start, e.first_char))
+                lo = min(trim_start, te)
+                out[chr_i] = (1, lo, max(trim_start, te) + 1 - lo)
         else:
             drop = True
-    block[:] = ret
-    return drop
+    return drop, out
 
 
 def generate_synteny_blocks(chr_list: list[FASTARecord],

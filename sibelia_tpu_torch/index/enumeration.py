@@ -12,12 +12,11 @@ with N shards available) it runs the sharded enumeration
 (``parallel/sharded_enum.py``) over ``make_mesh(N)`` instead, as the JAX
 package's branch does, and sets no candidate bitmap.
 ``enumerate_bifurcations_host`` is the copy of that function's host branch: the native enumeration
-(``native/ranking.cpp``) from 2^16 supergenome rows on, numpy below and
-when the native library is off (``SIBELIA_TPU_NATIVE=0``).  It
-serves ``trim_blocks``'s per-block mini-indexes below
-``blocks/synteny.py::TRIM_CARD_MIN_ROWS``, where the card's fixed cost a
-call is the larger, and supergenomes of 2^30 rows or more, which exceed
-the scan kernel's int32 key space.
+(``native/ranking.cpp``) from 2^16 supergenome rows on, its small form
+(``native/trim.cpp``, which also serves ``trim_blocks``'s rounds below
+``blocks/synteny.py::TRIM_CARD_MIN_ROWS``) below, and numpy when the
+native library is off (``SIBELIA_TPU_NATIVE=0``).  It serves supergenomes
+of 2^30 rows or more, which exceed the scan kernel's int32 key space.
 
 Both reproduce the semantics of the reference's suffix-array scan
 (reference: src/vertexenumeration.cpp:160-364) without a suffix array:
@@ -268,30 +267,43 @@ def enumerate_on_device(codes: np.ndarray, block_starts: np.ndarray,
     return res
 
 
+def _from_strands(count: int, strands) -> BifEnumeration:
+    return BifEnumeration(count, (strands[0][0], strands[1][0]),
+                          (strands[0][1], strands[1][1]),
+                          (strands[0][2], strands[1][2]))
+
+
 def enumerate_bifurcations_host(chromosomes: list[bytes | np.ndarray],
                                 k: int) -> BifEnumeration:
     """Enumerate bifurcations on the host: the whole ranking and group scan
-    in one native call from 2^16 supergenome rows on (chr and pos as
-    int32), the numpy formulation below and under SIBELIA_TPU_NATIVE=0
-    (int64)."""
+    in one native call, ``ranking.cpp``'s from 2^16 supergenome rows on
+    (chr and pos as int32) and ``trim.cpp``'s small form below (int64);
+    the numpy formulation under SIBELIA_TPU_NATIVE=0 (int64)."""
     if not chromosomes:
         return _empty_enumeration()
-    codes, block_starts = build_supergenome(chromosomes)
-    n = codes.shape[0]
-    n_chr = len(chromosomes)
-    res = None
-    if n >= (1 << 16):
-        from ..native import enumerate_native
+    from ..native import enumerate_native, trim_enum
+    arrs = [np.frombuffer(c, dtype=np.uint8)
+            if isinstance(c, (bytes, bytearray))
+            else np.asarray(c, dtype=np.uint8) for c in chromosomes]
+    lens = np.fromiter((len(a) for a in arrs), np.int64, len(arrs))
+    if supergenome_rows(int(lens.sum()), len(arrs)) < (1 << 16):
+        res = trim_enum(np.concatenate(arrs), lens, k)
+        if res is not None:
+            return _from_strands(*res)
+    codes, block_starts = build_supergenome(arrs)
+    if codes.shape[0] >= (1 << 16):
         with timings.phase("enum_native"):
-            res = enumerate_native(codes, block_starts, n_chr, k)
-    if res is not None:
-        count, strands = res
-        return BifEnumeration(
-            count,
-            (strands[0][0], strands[1][0]),
-            (strands[0][1], strands[1][1]),
-            (strands[0][2], strands[1][2]))
+            res = enumerate_native(codes, block_starts, len(arrs), k)
+        if res is not None:
+            return _from_strands(*res)
+    return enumerate_numpy(codes, block_starts, len(arrs), k)
 
+
+def enumerate_numpy(codes: np.ndarray, block_starts: np.ndarray, n_chr: int,
+                    k: int) -> BifEnumeration:
+    """The numpy formulation of the host enumeration over a built
+    supergenome (SIBELIA_TPU_NATIVE=0)."""
+    n = codes.shape[0]
     # Candidate validity == the k-window crosses no separator; derived
     # from the next-separator index in one reverse cummin pass (cheaper
     # than per-position block lookups over the whole supergenome).

@@ -25,9 +25,9 @@ group order, which the reference uses to assign bifurcation ids — so ids
 derived from these ranks match the reference's bit-for-bit.
 
 This module keeps the pack plan and the sentinel that the device code
-shares, the numpy ranking (small inputs: ``trim_blocks``'s per-block
-mini-indexes) and the stable argsort they share (the native radix sort of
-``native/engine.cpp`` for large inputs).
+shares, the numpy ranking (the host enumeration under
+``SIBELIA_TPU_NATIVE=0``) and the stable argsort they share (the native
+radix sort of ``native/engine.cpp`` for large inputs).
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def _pack_plan(k: int) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# numpy path (small inputs: per-group trim indexes, tests)
+# numpy path (the host enumeration under SIBELIA_TPU_NATIVE=0, tests)
 # ---------------------------------------------------------------------------
 
 def kmer_ranks_numpy(codes: np.ndarray, k: int):

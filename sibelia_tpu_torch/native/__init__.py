@@ -83,7 +83,7 @@ def load() -> ctypes.CDLL | None:
     load_ranking()
     lib = _build("libsibelia_engine.so",
                  ["-O3", "-march=native", "-ffp-contract=off", "-shared",
-                  "-fPIC"], ["engine.cpp"])
+                  "-fPIC"], ["engine.cpp", "trim.cpp"])
     lib.engine_create.restype = ctypes.c_void_p
     lib.engine_create.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
@@ -125,6 +125,14 @@ def load() -> ctypes.CDLL | None:
     lib.engine_export_chars.restype = None
     lib.engine_export_chars.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p]
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.trim_round.restype = ctypes.c_longlong
+    lib.trim_round.argtypes = [ptr, ptr, ptr, ctypes.c_int, i64, i64, ptr]
+    lib.trim_walk.restype = ctypes.c_longlong
+    lib.trim_walk.argtypes = [ptr, ptr, ctypes.c_int, i64, i64, i64,
+                              i64, ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr]
+    lib.trim_enum.restype = ctypes.c_longlong
+    lib.trim_enum.argtypes = [ptr, ptr, ctypes.c_int, i64, *[ptr] * 7]
     _LIBS["engine"] = lib
     return lib
 
@@ -139,6 +147,87 @@ def radix_argsort(keys: np.ndarray) -> np.ndarray | None:
     out = np.empty(len(keys), dtype=np.int64)
     lib.radix_argsort_u64(keys.ctypes.data, len(keys), out.ctypes.data)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Trim rounds of small blocks (trim.cpp)
+# ---------------------------------------------------------------------------
+
+def trim_round(chars: np.ndarray, lens: np.ndarray, dirs: np.ndarray,
+               k: int, min_size: int):
+    """One round of ``blocks/synteny.py::trim_blocks`` over a block's copies
+    laid end to end in `chars` (uint8, ambiguous bases already drawn), with
+    their lengths (int64) and directions (int8): the enumeration at k and
+    the walk in one call.  Returns (drop, out): out[i] = (kept, new start
+    within copy i, new length).  None when the library is off."""
+    lib = load()
+    if lib is None:
+        return None
+    chars = np.ascontiguousarray(chars, dtype=np.uint8)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    dirs = np.ascontiguousarray(dirs, dtype=np.int8)
+    if chars.size != lens.sum() or dirs.size != lens.size:
+        raise ValueError("trim_round: copies, lengths and directions differ")
+    out = np.empty((len(lens), 3), dtype=np.int64)
+    drop = lib.trim_round(chars.ctypes.data, lens.ctypes.data,
+                          dirs.ctypes.data, len(lens), k, min_size,
+                          out.ctypes.data)
+    return bool(drop), out
+
+
+def trim_walk(enum, lens: np.ndarray, dirs: np.ndarray, k: int,
+              min_size: int):
+    """``trim_round``'s walk alone over a BifEnumeration of the copies made
+    elsewhere (the card's); the same (drop, out).  None when the library is
+    off."""
+    lib = load()
+    if lib is None:
+        return None
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    dirs = np.ascontiguousarray(dirs, dtype=np.int8)
+    arrs = []
+    for s in (0, 1):
+        chrs = np.ascontiguousarray(enum.chr[s], dtype=np.int64)
+        poss = np.ascontiguousarray(enum.pos[s], dtype=np.int64)
+        ids = np.ascontiguousarray(enum.bif_id[s], dtype=np.uint32)
+        # the walk indexes its tables by id and copy
+        if chrs.size and not (ids.max() < enum.count
+                              and 0 <= chrs.min() and chrs.max() < lens.size
+                              and 0 <= poss.min()
+                              and (poss < lens[chrs]).all()):
+            raise ValueError("trim_walk: an instance outside the copies or "
+                             "the enumeration's ids")
+        arrs += [chrs, poss, ids]
+    if dirs.size != lens.size:
+        raise ValueError("trim_walk: lengths and directions differ")
+    out = np.empty((len(lens), 3), dtype=np.int64)
+    drop = lib.trim_walk(lens.ctypes.data, dirs.ctypes.data, len(lens), k,
+                         min_size, enum.count,
+                         len(arrs[0]), *(a.ctypes.data for a in arrs[:3]),
+                         len(arrs[3]), *(a.ctypes.data for a in arrs[3:]),
+                         out.ctypes.data)
+    return bool(drop), out
+
+
+def trim_enum(chars: np.ndarray, lens: np.ndarray, k: int):
+    """``trim_round``'s enumeration alone: (count, [(chr, pos, id)] * 2),
+    chr and pos int64, id uint32, per strand sorted by (chr, pos); None
+    when the library is off."""
+    lib = load()
+    if lib is None:
+        return None
+    chars = np.ascontiguousarray(chars, dtype=np.uint8)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    cap = int(lens.sum())
+    if chars.size != cap:
+        raise ValueError("trim_enum: copies and lengths differ")
+    arrs = [np.empty(cap, dtype=dt) for _ in (0, 1)
+            for dt in (np.int64, np.int64, np.uint32)]
+    sizes = np.zeros(2, dtype=np.int64)
+    count = lib.trim_enum(chars.ctypes.data, lens.ctypes.data, len(lens), k,
+                          *(a.ctypes.data for a in arrs), sizes.ctypes.data)
+    return int(count), [tuple(a[:sizes[s]] for a in arrs[3 * s:3 * s + 3])
+                        for s in (0, 1)]
 
 
 # ---------------------------------------------------------------------------

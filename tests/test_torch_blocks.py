@@ -3,7 +3,8 @@ enumerated through the port (sibelia_tpu_torch/blocks/synteny.py) against
 ``sibelia_tpu.blocks.finder.BlockFinder.generate_synteny_blocks`` on the
 host, on the fixture of tests/test_device_e2e.py with ambiguous bases.
 Exact equality of the blocks, the working sequence and the random stream,
-and the ``block_trim`` split with the trim enumerations' route counts."""
+and the ``block_trim`` split with the trim enumerations' route counts (the
+host route's rounds each one native call)."""
 import numpy as np
 import pytest
 import torch
@@ -60,9 +61,16 @@ def test_generate_synteny_blocks_matches_jax(tmp_path, monkeypatch, k,
         np.testing.assert_array_equal(a, b)
     phases = timings.snapshot()
     for name in ("block_index", "block_edges", "block_trim", "trim_resolve",
-                 "trim_enum", "trim_walk", "trim_rows"):
+                 "trim_walk", "trim_rows"):
         assert name in phases, name
+    # the host route's rounds in trim_native, the card route's enumerations
+    # in trim_enum
+    assert ("trim_native" in phases) == ("trim_host_calls" in phases)
+    assert ("trim_enum" in phases) == ("trim_card_calls" in phases)
     # every trim enumeration counted, by its route
     assert phases["trim_calls"] >= len({abs(b.signed_id) for b in got}) > 0
     assert (phases.get("trim_card_calls", 0)
             + phases.get("trim_host_calls", 0)) == phases["trim_calls"]
+    # with the native library every host-route round is one native call
+    assert phases.get("trim_native_calls", 0) == phases.get(
+        "trim_host_calls", 0)

@@ -112,7 +112,11 @@ def test_trim_blocks_matches_jax_host_branch(monkeypatch, name, k, min_rows):
     assert phases["trim_rows"] == sum(rows)
     assert phases.get("trim_card_calls", 0) == card
     assert phases.get("trim_host_calls", 0) == len(got) - card
-    assert "trim_enum" in phases and "trim_walk" in phases
+    # the host route's rounds are native calls, the card route's enumerate
+    assert phases.get("trim_native_calls", 0) == len(got) - card
+    assert ("trim_native" in phases) == (len(got) > card)
+    assert ("trim_enum" in phases) == (card > 0)
+    assert "trim_walk" in phases
 
 
 @pytest.mark.parametrize("name,k", [("three copies, N and IUPAC", 30),
