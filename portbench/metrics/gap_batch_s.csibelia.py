@@ -1,0 +1,5 @@
+from portbench.readers import phase_per_job
+
+
+def read(run):
+    return phase_per_job(run, "gap_batch", "csibelia")

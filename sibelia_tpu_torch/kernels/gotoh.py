@@ -50,6 +50,7 @@ def score_classes() -> tuple[np.ndarray, np.ndarray]:
 
 
 _TABLES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_TABLE_BYTES = 256 + 4 * 25  # byte_class and class_score
 
 
 def _device_tables(device: torch.device):
@@ -365,7 +366,12 @@ def batch_align(pairs: list[tuple[bytes, bytes]], T: int,
     the host Gotoh's (twin of gotoh_pallas.py::batch_align_pallas, with no
     padding of the batch).  On a card: lengths and codes go up in one copy
     from a pinned buffer, one launch, rows and lengths come down in one
-    copy into a second pinned buffer."""
+    copy into a second pinned buffer.  The counters ``gotoh_cells`` (the
+    DP cells of the true lengths) and ``gotoh_bytes`` give the launch's
+    shape.  ``gotoh_bytes`` is what the kernel touches, not the padded
+    buffers: it reads the two score tables, each pair's lengths and its
+    n + m bases, and writes each pair's length and its two rows up to
+    that length."""
     if not pairs:
         return []
     B = len(pairs)
@@ -378,6 +384,8 @@ def batch_align(pairs: list[tuple[bytes, bytes]], T: int,
         lens = host_in[:8 * B].view(torch.int32).view(2, B)
         codes = host_in[8 * B:].view(2, B, T)
         _pack_into(pairs, codes.numpy(), lens.numpy())
+        n = lens.numpy().astype(np.int64)
+        timings.add("gotoh_cells", int((n[0] * n[1]).sum()))
     with timings.phase("gotoh_device"):
         if on_card:
             dev_in = host_in.to(device, non_blocking=True)
@@ -392,6 +400,8 @@ def batch_align(pairs: list[tuple[bytes, bytes]], T: int,
                                   lengths.view(torch.uint8)])
     with timings.phase("gotoh_traceback"):
         rows, lengths = _split(host_out, B, T)
+        timings.add("gotoh_bytes", _TABLE_BYTES + 12 * B + int(n.sum())
+                    + 2 * int(lengths.sum()))
         # chr() of every byte, as the host traceback writes its rows
         text = rows.numpy().tobytes().decode("latin-1")
         return [(text[at:at + L], text[at + 2 * T:at + 2 * T + L])

@@ -36,7 +36,13 @@ _TRACE_PREF = (0, 1, 2)
 
 
 def _gotoh(a: bytes, b: bytes) -> tuple[str, str]:
-    """Affine-gap global alignment; returns aligned rows with '-' gaps."""
+    """Affine-gap global alignment; returns aligned rows with '-' gaps.
+    Its seconds go to the span ``host_gotoh``."""
+    with timings.phase("host_gotoh"):
+        return _gotoh_rows(a, b)
+
+
+def _gotoh_rows(a: bytes, b: bytes) -> tuple[str, str]:
     n, m = len(a), len(b)
     if n == 0:
         return "-" * m, b.decode()
@@ -184,9 +190,11 @@ class GapBatcher:
         return slot
 
     def flush(self) -> None:
+        """Closes the deferred gaps (the span ``gap_batch``)."""
         if not self.pairs:
             return
-        results = batch_align(self.pairs, DEVICE_BATCH_T, self.device)
+        with timings.phase("gap_batch"):
+            results = batch_align(self.pairs, DEVICE_BATCH_T, self.device)
         note_flush(len(self.pairs))
         for slot, rows in zip(self.slots, results):
             slot.rows = rows
@@ -269,7 +277,13 @@ def align_pair(a: bytes, b: bytes, k: int = 16, _depth: int = 0,
 def align_multiple(seqs: list[bytes]) -> list[str]:
     """Progressive multiple alignment (mlagan capability): aligns each
     sequence against the growing consensus-free profile via its first row
-    projection. Used for repeat-block MAF/XMFA output."""
+    projection. Used for repeat-block MAF/XMFA output; its seconds go to
+    the span ``multi_align``."""
+    with timings.phase("multi_align"):
+        return _align_multiple(seqs)
+
+
+def _align_multiple(seqs: list[bytes]) -> list[str]:
     if not seqs:
         return []
     if len(seqs) == 1:
