@@ -37,7 +37,8 @@ import os
 import torch
 
 from ..core import timings
-from ..native import lagan_anchors, lagan_chaos, lagan_order, load_lagan
+from ..native import (lagan_anchors, lagan_chaos, lagan_chaos_stats,
+                      lagan_order, load_lagan)
 
 
 def available() -> bool:
@@ -205,7 +206,9 @@ def rechaos_batch(pairs: list[tuple[bytes, str, bytes, str]],
     pairs: chaos for every pair (native, the GIL released: fanned over a
     thread pool when processes > 1), then ONE anchors stage for the level
     (on a card: every pair's sweep in one launch), then each pair's next
-    regions."""
+    regions.  Each level adds chaos's work to the run's record: the
+    counters ``chaos_words`` (word matches chained) and ``chaos_links``
+    (chain links walked by the rescoring)."""
     levels = RECURSION_LEVELS if levels is None else levels
     states = [_Rechaos(*p, gfc, levels) for p in pairs]
     pool = None
@@ -214,12 +217,17 @@ def rechaos_batch(pairs: list[tuple[bytes, str, bytes, str]],
         pool = ThreadPoolExecutor(max_workers=processes)
     try:
         for level in range(len(levels)):
+            before = lagan_chaos_stats()
             with timings.phase("chaos"):
                 if pool is not None:
                     texts = list(pool.map(lambda st: st.chaos(level),
                                           states))
                 else:
                     texts = [st.chaos(level) for st in states]
+            if before is not None:
+                words, links = lagan_chaos_stats()
+                timings.add("chaos_words", words - before[0])
+                timings.add("chaos_links", links - before[1])
             for st, anch in zip(states, _anchors_stage(texts, gfc, device)):
                 st.absorb(level, anch)
     finally:

@@ -260,6 +260,8 @@ def load_lagan() -> ctypes.CDLL | None:
         ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.le_chaos_stats.restype = None
+    lib.le_chaos_stats.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     lib.le_anchors.restype = ctypes.c_void_p
     lib.le_anchors.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.le_order.restype = ctypes.c_void_p
@@ -349,6 +351,18 @@ def lagan_chaos_translated(seq1: bytes, name1: str, seq2: bytes,
                              seq2, len(seq2), name2.encode("latin-1"),
                              int(both), wl, nd, co, rsc, int(gfc), int(ext))
     return _take_string(lib, ptr)
+
+
+def lagan_chaos_stats() -> tuple[int, int] | None:
+    """chaos's work since the library was loaded, summed over every region
+    of every thread: (word matches chained, chain links walked by the
+    rescoring); None when the native library is off."""
+    lib = load_lagan()
+    if lib is None:
+        return None
+    out = (ctypes.c_longlong * 2)()
+    lib.le_chaos_stats(out)
+    return int(out[0]), int(out[1])
 
 
 def lagan_anchors(hits_text: str, gfc: bool = True) -> str | None:

@@ -58,6 +58,9 @@ char* le_chaos_trans(const char* seq1, long n1, const char* name1,
   return dup_out(out);
 }
 
+// chaos's work counters, see lagan::chaos_stats.
+void le_chaos_stats(long long* out) { lagan::chaos_stats(out); }
+
 char* le_anchors(const char* hits_text, int gfc) {
   std::string out;
   lagan::anchors_text(hits_text, gfc != 0, &out);

@@ -2,12 +2,29 @@
 //
 // Re-implements the observable behavior of the reference seed finder
 // (reference: src/lagan/src/fchaos.c, thrtrie.c, skiplist.c) over in-memory
-// buffers, emitting byte-identical hit text.  Structural choices are our own
-// (flat node vector trie, std::list for the diagonal index, deque-backed hit
-// records); every ordering and arithmetic decision that reaches the output is
+// buffers, emitting byte-identical hit text.  Structural choices are our
+// own, and each lives as long as its Region (one -s1/-s2 region pair):
+//  * a flat threaded trie: trivially copyable nodes (backptr, height, and
+//    the start and count of their leaf locations), the children in one int
+//    array with a stride of the alphabet's class count (4 for DNA, 11 for
+//    peptides), the leaf locations in one CSR array;
+//  * flat hit records: a word-match record (LList of thrtrie.h) owns the
+//    slots base .. base + n - 1 of region-wide arrays (score, chain node,
+//    diagonal-list entry), one slot for each of its leaf's n locations;
+//  * parent-linked chains: the chain node of a slot holds the word match's
+//    two positions and the slot of its best predecessor (-1 where the chain
+//    starts), so chaining copies nothing; the rescoring walks the links
+//    back and reverses them.  A chain is fixed once made (the destructive
+//    kill touches scores alone), so the walk gives the sequence that the
+//    reference's copied index arrays hold;
+//  * an ordered std::list for the diagonal index, walked linearly (it may
+//    be locally unsorted, see below, so a sorted structure would differ).
+// Every ordering and arithmetic decision that reaches the output is
 // replicated:
 //  * threaded-trie job queue processing order incl. swap-with-last removal
 //    and generation (dirty) bookkeeping (thrtrie.c:244-324);
+//  * a leaf's locations in ascending position (the order of the trie's
+//    inserts), which is the order its slots are chained and flushed in;
 //  * per-position emission lists are built by prepending, so records are
 //    processed in reverse emission order (thrtrie.c:290-292, fchaos.c:552);
 //  * chaining scores are single-precision with int truncation in chain()
@@ -25,11 +42,12 @@
 #include <cstring>
 #include <cmath>
 #include <climits>
+#include <cstdint>
 #include <array>
+#include <atomic>
 #include <string>
 #include <vector>
 #include <list>
-#include <deque>
 #include <algorithm>
 
 #include "lagan_common.h"
@@ -44,6 +62,10 @@ const int kGapPenC = -1;   // fchaos.c:44
 const int kGapPenO = 0;    // fchaos.c:45
 const int kDropCutoff = 1500;  // fchaos.c:61
 
+// process-wide sums over every region run (chaos_stats)
+std::atomic<long long> g_words{0};  // word matches chained (slots)
+std::atomic<long long> g_links{0};  // chain links walked by rescore_hit
+
 inline int code(char c) {
   switch (c) {  // triealpha "ATCG" (fchaos.c:71) => A=0 T=1 C=2 G=3
     case 'A': return 0;
@@ -54,16 +76,11 @@ inline int code(char c) {
   }
 }
 
-const int kMaxClasses = 16;  // >= protein's 11 classes
-
 struct TrieNode {
-  int kids[kMaxClasses];
   int backptr;
   int height;
-  std::vector<int> locs;
-  explicit TrieNode(int h) : backptr(0), height(h) {
-    for (int i = 0; i < kMaxClasses; ++i) kids[i] = -1;
-  }
+  int lstart;  // the leaf's locations: locs_[lstart .. lstart + lcount)
+  int lcount;
 };
 
 struct DiagEntry {
@@ -74,15 +91,21 @@ struct DiagEntry {
 typedef std::list<DiagEntry> DiagList;
 typedef DiagList::iterator DiagIt;
 
-// One emitted word-match record (LList of thrtrie.h) with chaining state.
+// One emitted word-match record (LList of thrtrie.h): its slots in the
+// region's hit arrays are base + offset, one for each location of leaf.
 struct LL {
-  int leaf = -1;
-  int degleft = 0;
-  int location = 0;
-  std::vector<float> scores;
-  std::vector<int> s1start, s2start, s1end, s2end;
-  std::vector<std::vector<int>> inds1, inds2;
-  std::vector<DiagIt> sles;
+  int leaf;
+  int degleft;
+  int location;
+  int64_t base;
+};
+
+// The chain node of a slot: the word match's positions in seq1 and seq2
+// and the slot of its best predecessor (-1: the chain starts here).
+struct ChainNode {
+  int l1;
+  int l2;
+  int64_t parent;
 };
 
 struct HitNode {
@@ -104,11 +127,84 @@ struct Params {
   bool prot = false;                 // blosum62s scoring
 };
 
+// A region's two sequences and their substitution table (nucmatrix, or
+// blosum62s in the translated mode), with the scoring loops that the
+// rescoring and the merger share.  The table is read through a pointer
+// taken at construction.
+class Scorer {
+ public:
+  Scorer(const char* q, int qn, const char* d, int dn, bool prot)
+      : q_(q), qn_(qn), d_(d), dn_(dn), sm_(prot ? blosum().m : subst().m) {}
+
+  int extend_blast(int s1i, int s2i, int dir) const {
+    // fchaos.c:1003-1018
+    int peak = 0, peakloc = 0, currscore = 0, i = 1;
+    while (peak - currscore < kDropCutoff) {
+      int a = s1i + dir * i, b = s2i + dir * i;
+      if (a < 0 || b < 0 || !q_[a] || !d_[b] || a >= qn_ || b >= dn_) break;
+      currscore += at(a, b);
+      if (currscore > peak) {
+        peak = currscore;
+        peakloc = i;
+      }
+      ++i;
+    }
+    return peakloc;
+  }
+
+  int extend_merge(int s1l, int s2l, int s1r, int s2r, int* dir) {
+    // fchaos.c:1020-1052 incl. the negative-coordinate shift clamps.
+    if (s1l < 0) { int err = -s1l; s1l += err; s2l += err; }
+    if (s2l < 0) { int err = -s2l; s1l += err; s2l += err; }
+    int length = std::min(s1r - s1l, s2r - s2l);
+    *dir = (s1r - s1l == length) ? 0 : (s2r - s2l == length) ? 1 : -1;
+    if (length <= 0) return 0;
+    fwd_.resize((size_t)length + 1);
+    bwd_.resize((size_t)length + 1);
+    int* fwd = fwd_.data();
+    int* bwd = bwd_.data();
+    fwd[0] = bwd[length] = 0;
+    for (int i = 1; i <= length; ++i) {
+      fwd[i] = fwd[i - 1] + at(s1l + i, s2l + i);
+      bwd[length - i] = bwd[length - i + 1] + at(s1r - i, s2r - i);
+    }
+    int bestscore = -9999999, bestloc = 0;
+    for (int i = 0; i < length; ++i) {
+      if (fwd[i] + bwd[i + 1] > bestscore) {
+        bestscore = fwd[i] + bwd[i + 1];
+        bestloc = i;
+      }
+    }
+    return bestloc;
+  }
+
+  int rescore(int s1l, int s2l, int len) const {
+    // fchaos.c:1054-1066
+    if (s1l < 0) { int err = -s1l; s1l += err; s2l += err; len -= err; }
+    if (s2l < 0) { int err = -s2l; s1l += err; s2l += err; len -= err; }
+    int tot = 0;
+    for (int i = 0; i < len; ++i) tot += at(s1l + i, s2l + i);
+    return tot;
+  }
+
+ private:
+  int at(int a, int b) const {
+    return sm_[(unsigned char)q_[a]][(unsigned char)d_[b]];
+  }
+  const char* q_;
+  int qn_;
+  const char* d_;
+  int dn_;
+  const int (*sm_)[256];
+  std::vector<int> fwd_, bwd_;
+};
+
 class Region {
  public:
   Region(const char* q, int qn, const char* d, int dn, int numsiglets,
          const Params& p)
-      : q_(q), qn_(qn), d_(d), dn_(dn), numsiglets_(numsiglets), p_(p) {
+      : q_(q), qn_(qn), d_(d), dn_(dn), numsiglets_(numsiglets), p_(p),
+        sc_(q, qn, d, dn, p.prot) {
     dlist_.push_back(DiagEntry{INT_MIN, -1, -1});  // sentinel
   }
 
@@ -116,19 +212,21 @@ class Region {
 
  private:
   int make_node(int h) {
-    nodes_.emplace_back(h);
+    nodes_.push_back(TrieNode{0, h, 0, 0});
+    kids_.resize(kids_.size() + (size_t)p_.n_cls, -1);
     return (int)nodes_.size() - 1;
   }
-  void insert_word(int pos);
+  int& kid(int node, int c) { return kids_[(size_t)node * p_.n_cls + c]; }
+  int loc(int leaf, int offset) const {
+    return locs_[(size_t)nodes_[leaf].lstart + offset];
+  }
+  int insert_word(int pos);
   void insert_string();
   void get_next_words(int wordpos, std::vector<LL>* out);
   int chain_score(const LL& cur, int off2, const LL& prev, int off1,
                   int diff1, int gap, float baseval) const;
-  void find_prev(LL& cur, int position, int offset, float baseval);
-  int extend_blast(int s1i, int s2i, int dir) const;
-  int extend_merge(int s1l, int s2l, int s1r, int s2r, int* dir) const;
-  int rescore(int s1l, int s2l, int len) const;
-  void rescore_hit(LL& ll, int index);
+  void find_prev(const LL& cur, int offset, float baseval);
+  void rescore_hit(int64_t slot, Hit* hit);
   void flush(int pos, HitNode** allhits);
 
   DiagIt find_lt(int key) {  // last entry with index < key (>= sentinel)
@@ -143,10 +241,6 @@ class Region {
   int cls(char c) const {
     return p_.cls ? (int)p_.cls[(unsigned char)c] : code(c);
   }
-  int score_of(char a, char b) const {
-    return p_.prot ? blosum().m[(unsigned char)a][(unsigned char)b]
-                   : matchscore(a, b);
-  }
 
   const char* q_;
   int qn_;
@@ -154,10 +248,20 @@ class Region {
   int dn_;
   int numsiglets_;
   Params p_;
+  Scorer sc_;
+  // the trie
   std::vector<TrieNode> nodes_;
-  DiagList dlist_;
-  std::deque<LL> lls_;
+  std::vector<int> kids_;  // node * n_cls + class -> child, -1 for none
+  std::vector<int> locs_;
+  // the records, each position's as a range, and their slots
+  std::vector<LL> lls_;
   std::vector<std::pair<size_t, size_t>> per_pos_;
+  std::vector<float> scores_;
+  std::vector<ChainNode> chains_;
+  std::vector<DiagIt> sles_;
+  DiagList dlist_;
+  std::vector<int> inds1_, inds2_;  // rescore_hit's chain, reused
+  long long links_ = 0;
 
   struct Job {
     int node;
@@ -166,45 +270,61 @@ class Region {
     char dirty;
   };
   std::vector<Job> jobs_;
-  std::vector<Chunk> chunks_scratch_;
 };
 
-void Region::insert_word(int pos) {  // thrtrie.c:106-124
+int Region::insert_word(int pos) {  // thrtrie.c:106-124; the leaf or -1
   int node = 0;
   for (int dpt = 0; dpt < p_.wl; ++dpt) {
     int c = cls(q_[pos + dpt]);
-    if (c < 0) return;
-    if (nodes_[node].kids[c] < 0) {
+    if (c < 0) return -1;
+    if (kid(node, c) < 0) {
       int nn = make_node(p_.wl - dpt - 1);
-      nodes_[node].kids[c] = nn;
+      kid(node, c) = nn;
     }
-    node = nodes_[node].kids[c];
+    node = kid(node, c);
   }
-  nodes_[node].locs.push_back(pos);
+  return node;
 }
 
 void Region::insert_string() {  // thrtrie.c:172-198
-  nodes_.emplace_back(p_.wl);   // root
-  insert_word(0);
+  make_node(p_.wl);  // root
+  std::vector<int> leaf_at((size_t)std::max(qn_, 1), -1);
+  leaf_at[0] = insert_word(0);
   nodes_[0].backptr = 0;
   for (int p = 1; p < qn_; ++p) {
     int curr = 0, prev = 0;
-    insert_word(p);
+    leaf_at[(size_t)p] = insert_word(p);
     for (int i = 0; i < p_.wl; ++i) {
       int letprev = cls(q_[p + i - 1]);
       int letcurr = cls(q_[p + i]);
       if (letprev < 0) break;
-      prev = nodes_[prev].kids[letprev];
+      prev = kid(prev, letprev);
       if (prev < 0) break;  // defensive; paths exist for valid input
       nodes_[prev].backptr = curr;
       if (letcurr < 0) break;
-      curr = nodes_[curr].kids[letcurr];
+      curr = kid(curr, letcurr);
       if (curr < 0) break;
     }
   }
   int letcurr = cls(q_[qn_ - 1]);  // thrtrie.c:195-197
-  if (letcurr >= 0 && nodes_[0].kids[letcurr] >= 0)
-    nodes_[nodes_[0].kids[letcurr]].backptr = 0;
+  if (letcurr >= 0 && kid(0, letcurr) >= 0)
+    nodes_[kid(0, letcurr)].backptr = 0;
+  // the leaves' locations, each leaf's in ascending position (the order
+  // of the reference's appends)
+  for (int leaf : leaf_at)
+    if (leaf >= 0) ++nodes_[leaf].lcount;
+  int total = 0;
+  for (TrieNode& n : nodes_) {
+    n.lstart = total;
+    total += n.lcount;
+    n.lcount = 0;
+  }
+  locs_.resize((size_t)total);
+  for (size_t p = 0; p < leaf_at.size(); ++p) {
+    int leaf = leaf_at[p];
+    if (leaf >= 0)
+      locs_[(size_t)(nodes_[leaf].lstart + nodes_[leaf].lcount++)] = (int)p;
+  }
 }
 
 void Region::get_next_words(int wordpos, std::vector<LL>* out) {
@@ -242,10 +362,7 @@ void Region::get_next_words(int wordpos, std::vector<LL>* out) {
     jobs_.push_back(j);
   };
   auto emit = [&](const Job& j) {
-    LL ll;
-    ll.leaf = j.node;
-    ll.degleft = j.numdeg;
-    out->push_back(std::move(ll));
+    out->push_back(LL{j.node, j.numdeg, 0, 0});
   };
 
   for (size_t i = 0; i < mynjobs; ++i) {
@@ -277,7 +394,7 @@ void Region::get_next_words(int wordpos, std::vector<LL>* out) {
       first = 1;
       if (p_.nd - jobs_[i].numdeg > 0) {
         for (int j = 0; j < p_.n_cls; ++j) {
-          int child = nodes_[jobs_[i].node].kids[j];
+          int child = kid(jobs_[i].node, j);
           if (!(myflags & (1 << j)) && child >= 0) {
             addjob(child, (j == letter) ? -1 : wordpos, !mydirty, (int)i);
             if (nodes_[jobs_[i].node].height == 1) emit(jobs_.back());
@@ -285,7 +402,7 @@ void Region::get_next_words(int wordpos, std::vector<LL>* out) {
           }
         }
       } else {
-        int child = (letter >= 0) ? nodes_[jobs_[i].node].kids[letter] : -1;
+        int child = (letter >= 0) ? kid(jobs_[i].node, letter) : -1;
         if (letter >= 0 && child >= 0) {
           jobs_[i].node = child;
           jobs_[i].dirty = !mydirty;
@@ -307,7 +424,7 @@ void Region::get_next_words(int wordpos, std::vector<LL>* out) {
 int Region::chain_score(const LL& cur, int off2, const LL& prev, int off1,
                         int diff1, int gap, float baseval) const {
   // fchaos.c:400-428: float accumulation with int truncation.
-  int diff2 = nodes_[cur.leaf].locs[off2] - nodes_[prev.leaf].locs[off1];
+  int diff2 = loc(cur.leaf, off2) - loc(prev.leaf, off1);
   int score = p_.wl - cur.degleft;
   gap = std::abs(gap) * kGapPenC + kGapPenO;
   if (diff2 <= 0 || diff2 >= p_.lookback) return -1;
@@ -317,119 +434,68 @@ int Region::chain_score(const LL& cur, int off2, const LL& prev, int off1,
   return (int)((float)mindiff * baseval + (float)gap);
 }
 
-void Region::find_prev(LL& cur, int position, int offset, float baseval) {
+void Region::find_prev(const LL& cur, int offset, float baseval) {
   // fchaos.c:433-513 with the skiplist replaced by the ordered list; the
   // mysles tracking follows the reference's three update sites exactly.
-  int myloc = nodes_[cur.leaf].locs[offset];
+  const int64_t slot = cur.base + offset;
+  const int position = cur.location;
+  int myloc = loc(cur.leaf, offset);
   int diag = position - myloc;
   float bestscore = 0;
-  int bestll = -1, bestoffset = -1;
+  int64_t best = -1;
   int myscore = p_.wl - cur.degleft;
 
   DiagIt found = find_lt(diag - p_.mgaplen + 1);
-  cur.sles[offset] = found;  // (1) — always set; may be the sentinel
+  sles_[(size_t)slot] = found;  // (1) — always set; may be the sentinel
   DiagIt it = found;
   if (it->index <= diag - p_.mgaplen) ++it;  // always true for found < key
-  if (it != dlist_.end() && it->index < diag) cur.sles[offset] = it;  // (2)
+  if (it != dlist_.end() && it->index < diag) sles_[(size_t)slot] = it;  // (2)
   while (it != dlist_.end() && it->index < diag + p_.mgaplen) {
     DiagIt nxt = std::next(it);
     if (nxt != dlist_.end() && it->index < diag && nxt->index >= diag)
-      cur.sles[offset] = it;  // (3)
-    LL& temp = lls_[(size_t)it->ll];
+      sles_[(size_t)slot] = it;  // (3)
+    const LL& temp = lls_[(size_t)it->ll];
     int k = it->offset;
     int j = position - temp.location;
     int tempscore =
         chain_score(cur, offset, temp, k, j, it->index - diag, baseval);
     if (tempscore > 0) {
-      if (temp.scores[k] + (float)tempscore > bestscore) {
-        bestscore = temp.scores[k] + (float)tempscore;
-        bestll = it->ll;
-        bestoffset = k;
+      float& tscore = scores_[(size_t)(temp.base + k)];
+      if (tscore + (float)tempscore > bestscore) {
+        bestscore = tscore + (float)tempscore;
+        best = temp.base + k;
       } else {
-        temp.scores[k] = -1;  // destructive kill (fchaos.c:474)
+        tscore = -1;  // destructive kill (fchaos.c:474)
       }
     }
     it = nxt;
   }
-  if (bestll >= 0) {
-    LL& best = lls_[(size_t)bestll];
-    cur.scores[offset] = bestscore;
-    cur.s1start[offset] = best.s1start[bestoffset];
-    cur.s2start[offset] = best.s2start[bestoffset];
-    cur.inds1[offset] = best.inds1[bestoffset];
-    cur.inds2[offset] = best.inds2[bestoffset];
-    cur.inds1[offset].push_back(myloc);
-    cur.inds2[offset].push_back(position);
-  } else {
-    cur.scores[offset] = (float)myscore;
-    cur.s2start[offset] = position;
-    cur.s1start[offset] = myloc;
-    cur.inds1[offset].assign(1, myloc);
-    cur.inds2[offset].assign(1, position);
-  }
+  scores_[(size_t)slot] = best >= 0 ? bestscore : (float)myscore;
+  chains_[(size_t)slot] = ChainNode{myloc, position, best};
 }
 
-int Region::extend_blast(int s1i, int s2i, int dir) const {
-  // fchaos.c:1003-1018
-  int peak = 0, peakloc = 0, currscore = 0, i = 1;
-  while (peak - currscore < kDropCutoff) {
-    int a = s1i + dir * i, b = s2i + dir * i;
-    if (a < 0 || b < 0 || !q_[a] || !d_[b] || a >= qn_ || b >= dn_) break;
-    currscore += score_of(q_[a], d_[b]);
-    if (currscore > peak) {
-      peak = currscore;
-      peakloc = i;
-    }
-    ++i;
+void Region::rescore_hit(int64_t slot, Hit* hit) {
+  // fchaos.c:1069-1133; rebuilds chunks and total score from the chain,
+  // whose links are walked back from the slot and reversed.
+  inds1_.clear();
+  inds2_.clear();
+  for (int64_t c = slot; c >= 0; c = chains_[(size_t)c].parent) {
+    inds1_.push_back(chains_[(size_t)c].l1);
+    inds2_.push_back(chains_[(size_t)c].l2);
   }
-  return peakloc;
-}
-
-int Region::extend_merge(int s1l, int s2l, int s1r, int s2r, int* dir) const {
-  // fchaos.c:1020-1052 incl. the negative-coordinate shift clamps.
-  if (s1l < 0) { int err = -s1l; s1l += err; s2l += err; }
-  if (s2l < 0) { int err = -s2l; s1l += err; s2l += err; }
-  int length = std::min(s1r - s1l, s2r - s2l);
-  *dir = (s1r - s1l == length) ? 0 : (s2r - s2l == length) ? 1 : -1;
-  if (length <= 0) return 0;
-  std::vector<int> fwd((size_t)length + 1), bwd((size_t)length + 1);
-  fwd[0] = bwd[length] = 0;
-  for (int i = 1; i <= length; ++i) {
-    fwd[i] = fwd[i - 1] + score_of(q_[s1l + i], d_[s2l + i]);
-    bwd[length - i] =
-        bwd[length - i + 1] + score_of(q_[s1r - i], d_[s2r - i]);
-  }
-  int bestscore = -9999999, bestloc = 0;
-  for (int i = 0; i < length; ++i) {
-    if (fwd[i] + bwd[i + 1] > bestscore) {
-      bestscore = fwd[i] + bwd[i + 1];
-      bestloc = i;
-    }
-  }
-  return bestloc;
-}
-
-int Region::rescore(int s1l, int s2l, int len) const {
-  // fchaos.c:1054-1066
-  if (s1l < 0) { int err = -s1l; s1l += err; s2l += err; len -= err; }
-  if (s2l < 0) { int err = -s2l; s1l += err; s2l += err; len -= err; }
-  int tot = 0;
-  for (int i = 0; i < len; ++i) tot += score_of(q_[s1l + i], d_[s2l + i]);
-  return tot;
-}
-
-void Region::rescore_hit(LL& ll, int index) {
-  // fchaos.c:1069-1133; rebuilds chunks and total score from the chain.
-  const std::vector<int>& inds1 = ll.inds1[index];
-  const std::vector<int>& inds2 = ll.inds2[index];
+  std::reverse(inds1_.begin(), inds1_.end());
+  std::reverse(inds2_.begin(), inds2_.end());
+  const std::vector<int>& inds1 = inds1_;
+  const std::vector<int>& inds2 = inds2_;
   int numind = (int)inds1.size();
+  links_ += numind;
   int temp = 0;
-  if (p_.ext) temp = extend_blast(inds1[0], inds2[0], -1);
+  if (p_.ext) temp = sc_.extend_blast(inds1[0], inds2[0], -1);
   int ts1 = inds1[0] - temp;
   int ts2 = inds2[0] - temp;
-  ll.s1start[index] = ts1;
-  ll.s2start[index] = ts2;
-  std::vector<Chunk> chunks;
+  hit->s1s = ts1;
+  hit->s2s = ts2;
+  std::vector<Chunk>& chunks = hit->chunks;
   chunks.push_back(Chunk{0, 0, 0});
   int totscore = 0;
   int i = 0;
@@ -437,11 +503,11 @@ void Region::rescore_hit(LL& ll, int index) {
     int offset = (inds1[i] - inds2[i]) - (inds1[i + 1] - inds2[i + 1]);
     if (!offset) continue;
     int dir;
-    int t = extend_merge(inds1[i] + p_.wl - 1, inds2[i] + p_.wl - 1,
-                         inds1[i + 1], inds2[i + 1], &dir);
+    int t = sc_.extend_merge(inds1[i] + p_.wl - 1, inds2[i] + p_.wl - 1,
+                             inds1[i + 1], inds2[i + 1], &dir);
     int te1 = inds1[i] + p_.wl - 1 + t;
     int te2 = inds2[i] + p_.wl - 1 + t;
-    int myscore = rescore(ts1, ts2, te1 - ts1 + 1);
+    int myscore = sc_.rescore(ts1, ts2, te1 - ts1 + 1);
     totscore += myscore;
     totscore += p_.gap_start + p_.gap_ext * std::abs(offset);
     chunks.back().length = te1 - ts1 + 1;
@@ -457,45 +523,36 @@ void Region::rescore_hit(LL& ll, int index) {
   }
   temp = 0;
   if (p_.ext)
-    temp = extend_blast(inds1[i] + p_.wl - 1, inds2[i] + p_.wl - 1, 1);
-  int myscore = rescore(ts1, ts2, inds1[i] + p_.wl - ts1 + temp);
+    temp = sc_.extend_blast(inds1[i] + p_.wl - 1, inds2[i] + p_.wl - 1, 1);
+  int myscore = sc_.rescore(ts1, ts2, inds1[i] + p_.wl - ts1 + temp);
   chunks.back().length = inds1[i] + p_.wl - ts1 + temp;
   chunks.back().score = myscore;
   totscore += myscore;
-  ll.scores[index] = (float)totscore;
-  ll.s1end[index] = inds1[i] + p_.wl - 1 + temp;
-  ll.s2end[index] = inds2[i] + p_.wl - 1 + temp;
-  chunks_scratch_ = std::move(chunks);
+  hit->score = (float)totscore;
+  hit->s1e = inds1[i] + p_.wl - 1 + temp;
+  hit->s2e = inds2[i] + p_.wl - 1 + temp;
 }
 
 void Region::flush(int pos, HitNode** allhits) {
   // savenfreeLList (fchaos.c:1136-1173): record order as stored (already the
   // reference's processing order), offsets ascending; saveScore prepends.
   auto range = per_pos_[(size_t)pos];
-  for (size_t idx = range.first; idx < range.second; ++idx) {
-    LL& ll = lls_[idx];
-    size_t n = nodes_[ll.leaf].locs.size();
-    for (size_t i = 0; i < n; ++i) {
-      if (ll.scores[i] > (float)p_.co) {
-        ll.s1end[i] = nodes_[ll.leaf].locs[i] + p_.wl - 1;
-        ll.s2end[i] = ll.location + p_.wl - 1;
-        rescore_hit(ll, (int)i);
-        if (ll.scores[i] > (float)p_.rsc) {
-          HitNode* hn = new HitNode;
-          hn->h.score = ll.scores[i];
-          hn->h.s1s = ll.s1start[i];
-          hn->h.s2s = ll.s2start[i];
-          hn->h.s1e = ll.s1end[i];
-          hn->h.s2e = ll.s2end[i];
-          hn->h.chunks = std::move(chunks_scratch_);
+  for (size_t r = range.first; r < range.second; ++r) {
+    const LL& ll = lls_[r];
+    int n = nodes_[ll.leaf].lcount;
+    for (int i = 0; i < n; ++i) {
+      if (scores_[(size_t)(ll.base + i)] > (float)p_.co) {
+        HitNode* hn = new HitNode;
+        rescore_hit(ll.base + i, &hn->h);
+        if (hn->h.score > (float)p_.rsc) {
           hn->next = *allhits;
           *allhits = hn;
+        } else {
+          delete hn;
         }
       }
     }
-    for (size_t i = 0; i < n; ++i) dlist_.erase(ll.sles[i]);
-    LL empty;
-    lls_[idx] = std::move(empty);  // release memory; slot stays
+    for (int i = 0; i < n; ++i) dlist_.erase(sles_[(size_t)(ll.base + i)]);
   }
 }
 
@@ -508,40 +565,39 @@ HitNode* Region::run() {
     emitted.clear();
     get_next_words(i, &emitted);
     int numhits = 1;
-    for (const LL& ll : emitted)
-      numhits += (int)nodes_[ll.leaf].locs.size();
+    for (const LL& ll : emitted) numhits += nodes_[ll.leaf].lcount;
     float baseval = (float)std::log((double)numsiglets_ / (double)numhits) /
                     (float)p_.wl;
     size_t start_idx = lls_.size();
+    size_t slots = scores_.size();
     for (auto rit = emitted.rbegin(); rit != emitted.rend(); ++rit) {
-      rit->location = i - p_.wl + 1;
-      lls_.push_back(std::move(*rit));
+      LL ll = *rit;
+      ll.location = i - p_.wl + 1;
+      ll.base = (int64_t)slots;
+      slots += (size_t)nodes_[ll.leaf].lcount;
+      lls_.push_back(ll);
     }
+    scores_.resize(slots);
+    chains_.resize(slots);
+    sles_.resize(slots);
     per_pos_[(size_t)i] = {start_idx, lls_.size()};
-    for (size_t idx = start_idx; idx < lls_.size(); ++idx) {
-      LL& t = lls_[idx];
-      size_t n = nodes_[t.leaf].locs.size();
-      t.scores.assign(n, 0.0f);
-      t.s1start.assign(n, 0);
-      t.s2start.assign(n, 0);
-      t.s1end.assign(n, 0);
-      t.s2end.assign(n, 0);
-      t.inds1.assign(n, {});
-      t.inds2.assign(n, {});
-      t.sles.assign(n, dlist_.begin());
-      for (size_t j = 0; j < n; ++j)
-        find_prev(t, t.location, (int)j, baseval);
-      for (size_t j = 0; j < n; ++j) {
-        int key = t.location - nodes_[t.leaf].locs[j];
-        DiagIt own = dlist_.insert(std::next(t.sles[j]),
-                                   DiagEntry{key, (int)idx, (int)j});
-        t.sles[j] = own;
+    for (size_t r = start_idx; r < lls_.size(); ++r) {
+      const LL& t = lls_[r];
+      int n = nodes_[t.leaf].lcount;
+      for (int j = 0; j < n; ++j) find_prev(t, j, baseval);
+      for (int j = 0; j < n; ++j) {
+        size_t slot = (size_t)(t.base + j);
+        int key = t.location - loc(t.leaf, j);
+        sles_[slot] = dlist_.insert(std::next(sles_[slot]),
+                                    DiagEntry{key, (int)r, j});
       }
     }
     if (i - p_.lookback >= 0) flush(i - p_.lookback, &allhits);
   }
   for (int j = (dn_ - p_.lookback >= 0) ? dn_ - p_.lookback : 0; j < dn_; ++j)
     flush(j, &allhits);
+  g_words += (long long)scores_.size();
+  g_links += links_;
   return allhits;
 }
 
@@ -553,9 +609,8 @@ bool duplicates(const HitNode* f, const HitNode* s) {
 
 class Merger {
  public:
-  Merger(const char* q, int qn, const char* d, int dn,
-         const Params& p = Params{10, 1, 25, 0, false, false})
-      : q_(q), qn_(qn), d_(d), dn_(dn), p_(p) {}
+  Merger(const char* q, int qn, const char* d, int dn, const Params& p)
+      : sc_(q, qn, d, dn, p.prot), p_(p) {}
 
   bool merge_overlap(Hit& h1, Hit& h2) {
     // fchaos.c:1175-1254; newscore is an int in the reference, so the float
@@ -572,8 +627,8 @@ class Merger {
     if (s1r <= s1l || s2r <= s2l) return 0;
     if (offset) {
       int dir;
-      int bestloc = extend_merge(s1l, s2l, s1r, s2r, &dir);
-      int myscore = rescore(s1l, s2l, bestloc);
+      int bestloc = sc_.extend_merge(s1l, s2l, s1r, s2r, &dir);
+      int myscore = sc_.rescore(s1l, s2l, bestloc);
       int s1n, s2n;
       if (dir) {
         s1n = s1l + bestloc + std::abs(offset) + 1;
@@ -582,7 +637,7 @@ class Merger {
         s2n = s2l + bestloc + std::abs(offset) + 1;
         s1n = s1l + bestloc + 1;
       }
-      int nextscore = rescore(s1n, s2n, s2r - s2n);
+      int nextscore = sc_.rescore(s1n, s2n, s2r - s2n);
       int newscore =
           (int)(h1.score + h2.score -
                 (float)(h2.chunks.front().score - nextscore) -
@@ -596,7 +651,7 @@ class Merger {
       h1.chunks.back().score = myscore;
       h1.chunks.insert(h1.chunks.end(), h2.chunks.begin(), h2.chunks.end());
     } else {
-      int myscore = rescore(s1l, s2l, s1r - s1l);
+      int myscore = sc_.rescore(s1l, s2l, s1r - s1l);
       int newscore = (int)(h1.score + h2.score -
                            (float)(h1.chunks.back().score - myscore) +
                            (float)gappen);
@@ -613,43 +668,7 @@ class Merger {
   }
 
  private:
-  int score_of(char a, char b) const {
-    return p_.prot ? blosum().m[(unsigned char)a][(unsigned char)b]
-                   : matchscore(a, b);
-  }
-  int extend_merge(int s1l, int s2l, int s1r, int s2r, int* dir) const {
-    if (s1l < 0) { int err = -s1l; s1l += err; s2l += err; }
-    if (s2l < 0) { int err = -s2l; s1l += err; s2l += err; }
-    int length = std::min(s1r - s1l, s2r - s2l);
-    *dir = (s1r - s1l == length) ? 0 : (s2r - s2l == length) ? 1 : -1;
-    if (length <= 0) return 0;
-    std::vector<int> fwd((size_t)length + 1), bwd((size_t)length + 1);
-    fwd[0] = bwd[length] = 0;
-    for (int i = 1; i <= length; ++i) {
-      fwd[i] = fwd[i - 1] + score_of(q_[s1l + i], d_[s2l + i]);
-      bwd[length - i] =
-          bwd[length - i + 1] + score_of(q_[s1r - i], d_[s2r - i]);
-    }
-    int bestscore = -9999999, bestloc = 0;
-    for (int i = 0; i < length; ++i) {
-      if (fwd[i] + bwd[i + 1] > bestscore) {
-        bestscore = fwd[i] + bwd[i + 1];
-        bestloc = i;
-      }
-    }
-    return bestloc;
-  }
-  int rescore(int s1l, int s2l, int len) const {
-    if (s1l < 0) { int err = -s1l; s1l += err; s2l += err; len -= err; }
-    if (s2l < 0) { int err = -s2l; s1l += err; s2l += err; len -= err; }
-    int tot = 0;
-    for (int i = 0; i < len; ++i) tot += score_of(q_[s1l + i], d_[s2l + i]);
-    return tot;
-  }
-  const char* q_;
-  int qn_;
-  const char* d_;
-  int dn_;
+  Scorer sc_;
   Params p_;
 };
 
@@ -956,6 +975,11 @@ void chaos_pairs(const MappedSeq& s1, const char* name1, const MappedSeq& s2,
     allhits = remove_dups(allhits, m);
     print_hits(allhits, name1, name2, a, c, gfc, out);
   }
+}
+
+void chaos_stats(long long* out) {
+  out[0] = g_words.load();
+  out[1] = g_links.load();
 }
 
 }  // namespace lagan

@@ -20,6 +20,10 @@ void chaos_pairs(const MappedSeq& s1, const char* name1, const MappedSeq& s2,
                  const char* name2,
                  const std::vector<std::array<int, 4>>& pairs, int wl, int nd,
                  int co, int rsc, bool gfc, bool ext, std::string* out);
+// the process-wide sums of chaos's work since the library was loaded, over
+// every region of both entry points: out[0] word matches chained, out[1]
+// chain links walked by the rescoring.
+void chaos_stats(long long* out);
 
 // anchors: parses chaos-format hit text, selects the maximal consistent
 // chain, appends the anchor lines (reference: anchors.c stdout format).

@@ -163,6 +163,8 @@ def test_csibelia_cli_keeps_one_record_a_run(tmp_path, monkeypatch, switches):
         assert dumps[0]["anchors_sweeps"] >= dumps[0]["order_device_jobs"]
         assert dumps[0]["order_row_bytes"] > 0
         assert 0 < dumps[0]["chaos"] <= dumps[0]["rechaos"]
+        for k in ("chaos_words", "chaos_links"):
+            assert dumps[0][k] == dumps[1][k] > 0
         assert dumps[0]["gotoh_flushes"] == 0
 
 
