@@ -10,13 +10,18 @@ The whole-genome index is built on the device
 of ``trim_blocks``'s large rounds (``trim_enumeration``); a small round is
 one native call (``native/trim.cpp``).  The calls are made in the JAX
 package's order, so the GlibcRand stream that randomizes ambiguous bases
-is consumed as there.  The three parts are the ``timings`` phases
-``block_index``, ``block_edges`` and ``block_trim``; inside the last,
+is consumed as there.  The edge table is one native call
+(``native/blocks.cpp``: listed, grouped and ordered by libstdc++'s
+std::sort, as core/stdsort.py orders it), and so is each group's overlap
+claim.  The three parts are the ``timings`` phases ``block_index``,
+``block_edges`` and ``block_trim``; inside the last,
 ``trim_resolve`` (``resolve_overlap``), ``trim_native`` (the native
 rounds), ``trim_enum`` (the other rounds' enumerations) and ``trim_walk``
 (the rest of ``trim_blocks`` and the commit of each block), with the
 counts ``trim_calls``, ``trim_rows`` (supergenome rows),
-``trim_card_calls``, ``trim_host_calls`` and ``trim_native_calls``.
+``trim_card_calls``, ``trim_host_calls`` and ``trim_native_calls``; the
+native table's rows and claims are counted ``edge_table_rows`` and
+``overlap_native_calls``.
 """
 from __future__ import annotations
 
@@ -60,7 +65,25 @@ def resolve_overlap(group: list[Edge], min_size: int,
     """Greedy per-edge claim of the longest free original-coordinate run
     (reference: synteny.cpp:124-166). `overlap` is the global occupancy;
     claims within this group are tracked locally and only committed by the
-    caller after trimming succeeds."""
+    caller after trimming succeeds.  One native call
+    (``native.overlap_claims``, counted ``overlap_native_calls``);
+    ``_resolve_overlap`` without the library."""
+    out = native.overlap_claims(
+        [(e.chr, e.original_position, e.original_length) for e in group],
+        overlap, min_size)
+    if out is None:
+        return _resolve_overlap(group, min_size, overlap)
+    timings.add("overlap_native_calls", 1)
+    return [Edge(e.chr, e.direction, e.start_vertex, e.end_vertex,
+                 e.actual_position, e.actual_length, start, length,
+                 e.first_char)
+            for e, (claimed, start, length) in zip(group, out) if claimed]
+
+
+def _resolve_overlap(group: list[Edge], min_size: int,
+                     overlap: list[np.ndarray]) -> list[Edge]:
+    """``resolve_overlap``'s rule in numpy (SIBELIA_TPU_NATIVE=0): each
+    claim of the group in a whole-chromosome mask."""
     now_block: list[Edge] = []
     local: dict[int, np.ndarray] = {}
     for e in group:
@@ -290,6 +313,56 @@ def _trim_walk(lens: np.ndarray, dirs: np.ndarray, enum: BifEnumeration,
     return drop, out
 
 
+def _dots(progress, p_thresh: int, done: int, upto: int) -> None:
+    """The progress bar's dots for groups done + 1 .. upto: one a
+    `p_thresh` groups, the bar's position capped at 50 (the reference
+    counts every group, util.cpp:89-111)."""
+    for i in range((done // p_thresh + 1) * p_thresh, upto + 1, p_thresh):
+        progress(min(i // p_thresh, 50), 1)
+
+
+def edge_groups(seq: MutableSequence, store, k: int, min_size: int
+                ) -> tuple[int, list[tuple[int, list[Edge]]]]:
+    """Block generation's edge groups (reference: synteny.cpp:229-260):
+    the edges of original length at least `min_size`, grouped by
+    (startVertex, endVertex, firstChar), the groups sorted by size,
+    greater first, and each group's edges by direction.  Returns the
+    number of groups and, in that order, (index, edges) of each group that
+    can make a block: two edges or more, one of them positive.
+
+    One native call (``native.edge_table``, its rows counted
+    ``edge_table_rows``) lists and orders the whole table; only the edges
+    of those groups become ``Edge`` objects.  Without the library,
+    ``list_edges`` and ``core/stdsort.py``, which order equal elements as
+    the native std::sort does."""
+    table = native.edge_table(seq.chars, seq.origpos, store.bif_at,
+                              store.node_bif, k, min_size)
+    if table is None:
+        edges = [e for e in list_edges(seq, store, k)
+                 if e.original_length >= min_size]
+        groups = group_by(edges, _cmp_edges_naturally)
+        std_sort(groups, lambda a, b: (a[1] - a[0]) > (b[1] - b[0]))
+        out = []
+        for j, (g0, g1) in enumerate(groups):
+            seg = edges[g0:g1]
+            std_sort(seg, _cmp_edges_by_direction)
+            if len(seg) > 1 and seg[0].direction == 0:
+                out.append((j, seg))
+        return len(groups), out
+    cols, bounds = table
+    timings.add("edge_table_rows", len(cols[0]))
+    g0, g1 = bounds[:, 0], bounds[:, 1]
+    # a group's first edge is its least direction
+    can = np.flatnonzero((g1 - g0 > 1) & (cols[1][g0] == 0))
+    sizes = (g1 - g0)[can]
+    ends = np.cumsum(sizes)
+    rows = (np.repeat(g0[can] - (ends - sizes), sizes)
+            + np.arange(ends[-1] if sizes.size else 0))
+    edges = list(map(Edge, *(c[rows].tolist() for c in cols)))
+    return len(bounds), [(j, edges[e - n:e]) for j, n, e
+                         in zip(can.tolist(), sizes.tolist(), ends.tolist())]
+
+
 def generate_synteny_blocks(chr_list: list[FASTARecord],
                             raw_seq: list[bytes],
                             original_pos: list[np.ndarray],
@@ -310,30 +383,19 @@ def generate_synteny_blocks(chr_list: list[FASTARecord],
         seq = MutableSequence(raw_seq, original_pos)
         store = build_index(seq, k, rand, device, mesh)
     with timings.phase("block_edges"):
-        edges = list_edges(seq, store, k)
-        edges = [e for e in edges if e.original_length >= min_size]
-        groups = group_by(edges, _cmp_edges_naturally)
-        std_sort(groups, lambda a, b: (a[1] - a[0]) > (b[1] - b[0]))
+        n_groups, trimmable = edge_groups(seq, store, k, min_size)
 
     block: list[BlockInstance] = []
     block_count = 1
     if progress is not None:
         progress(0, 0)
-    p_thresh = max(1, len(groups) // 50)
-    p_count = 0
-    p_prog = 0
+    p_thresh = max(1, n_groups // 50)
+    done = 0
     with timings.phase("block_trim"):
-        for g0, g1 in groups:
-            p_count += 1
-            if p_count >= p_thresh and progress is not None:
-                p_count = 0
-                p_prog = min(p_prog + 1, 50)
-                progress(p_prog, 1)
-            seg = edges[g0:g1]
-            std_sort(seg, _cmp_edges_by_direction)
-            edges[g0:g1] = seg
-            if g1 - g0 < 2 or not any(e.direction == 0 for e in seg):
-                continue
+        for j, seg in trimmable:
+            if progress is not None:
+                _dots(progress, p_thresh, done, j + 1)
+            done = j + 1
             with timings.phase("trim_resolve"):
                 now_block = resolve_overlap(seg, min_size, overlap)
             while trim_blocks(chr_list, now_block, trim_k, min_size, rand,
@@ -354,8 +416,8 @@ def generate_synteny_blocks(chr_list: list[FASTARecord],
                                                    chr_list[e.chr], start,
                                                    end))
                     block_count += 1
-
     if progress is not None:
+        _dots(progress, p_thresh, done, n_groups)
         progress(50, 2)
     std_sort(block, lambda a, b: (a.chr_id, a.start) < (b.chr_id, b.start))
     return block

@@ -3,8 +3,10 @@ this file.
 
 Copies of the loaders and ctypes wrappers of ``sibelia_tpu/native/__init__.py``
 over the port's own copies of the sources: the simplification engine
-(``engine.cpp``), the k-mer ranking and host enumeration (``ranking.cpp``)
-and the LAGAN stage primitives (``lagan_*.cpp``).  Each library is built with
+(``engine.cpp``, with block generation's trim rounds, ``trim.cpp``, and
+its edge table and overlap claims, ``blocks.cpp``), the k-mer ranking and
+host enumeration (``ranking.cpp``) and the LAGAN stage primitives
+(``lagan_*.cpp``).  Each library is built with
 g++ at first use into ``native/build/`` (rebuilt when a source is newer) with
 the JAX package's compile flags, and loaded with ctypes.  A build or load
 that fails raises: there is no Python engine to take its place, and the
@@ -83,7 +85,7 @@ def load() -> ctypes.CDLL | None:
     load_ranking()
     lib = _build("libsibelia_engine.so",
                  ["-O3", "-march=native", "-ffp-contract=off", "-shared",
-                  "-fPIC"], ["engine.cpp", "trim.cpp"])
+                  "-fPIC"], ["engine.cpp", "trim.cpp", "blocks.cpp"])
     lib.engine_create.restype = ctypes.c_void_p
     lib.engine_create.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
@@ -133,6 +135,13 @@ def load() -> ctypes.CDLL | None:
                               i64, ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr]
     lib.trim_enum.restype = ctypes.c_longlong
     lib.trim_enum.argtypes = [ptr, ptr, ctypes.c_int, i64, *[ptr] * 7]
+    lib.edge_table.restype = ctypes.c_longlong
+    lib.edge_table.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr, i64, ptr,
+                               ptr, i64, i64, ptr]
+    lib.edge_table_fetch.restype = None
+    lib.edge_table_fetch.argtypes = [ptr] * 10
+    lib.overlap_claims.restype = ctypes.c_longlong
+    lib.overlap_claims.argtypes = [ctypes.c_int, ptr, i64, ptr]
     _LIBS["engine"] = lib
     return lib
 
@@ -228,6 +237,89 @@ def trim_enum(chars: np.ndarray, lens: np.ndarray, k: int):
                           *(a.ctypes.data for a in arrs), sizes.ctypes.data)
     return int(count), [tuple(a[:sizes[s]] for a in arrs[3 * s:3 * s + 3])
                         for s in (0, 1)]
+
+
+# ---------------------------------------------------------------------------
+# Block generation's edge table and overlap claims (blocks.cpp)
+# ---------------------------------------------------------------------------
+
+# the edge table's columns, in blocks/edges.py::Edge's field order
+EDGE_COLUMNS = (("chr", np.int32), ("direction", np.int8),
+                ("start_vertex", np.int64), ("end_vertex", np.int64),
+                ("actual_position", np.int64), ("actual_length", np.int64),
+                ("original_position", np.int64),
+                ("original_length", np.int64), ("first_char", np.uint8))
+
+
+def _pointers(arrays: list[np.ndarray]):
+    return (ctypes.c_void_p * max(1, len(arrays)))(
+        *(a.ctypes.data for a in arrays))
+
+
+def edge_table(chars: list[np.ndarray], origpos: list[np.ndarray],
+               bif_at: list[list[np.ndarray]], node_bif: np.ndarray,
+               k: int, min_size: int):
+    """``generate_synteny_blocks``' edge table in one call: the edges of
+    ``blocks/edges.py::list_edges`` over the index's marks (`bif_at`,
+    `node_bif`) and the sequence (`chars`, `origpos`), those of original
+    length below `min_size` left out, grouped by the natural key and
+    ordered as ``core/stdsort.py`` orders them: the groups by size, greater
+    first, and each group's edges by direction.  Returns (columns,
+    bounds): one array a field of ``EDGE_COLUMNS``, the rows in their final
+    order, and each group's (begin, end) rows, int64 (n_groups, 2), in the
+    groups' final order.  None when the library is off."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(chars)
+    chars = [np.ascontiguousarray(c, dtype=np.uint8) for c in chars]
+    origpos = [np.ascontiguousarray(o, dtype=np.int32) for o in origpos]
+    marks = [[np.ascontiguousarray(a, dtype=np.int64) for a in bif_at[s]]
+             for s in (0, 1)]
+    node_bif = np.ascontiguousarray(node_bif, dtype=np.int64)
+    lens = np.array([c.size for c in chars], dtype=np.int64)
+    for arrs in (origpos, *marks):
+        if [a.size for a in arrs] != lens.tolist():
+            raise ValueError("edge_table: marks, bases and original "
+                             "positions differ in length")
+    n_groups = np.zeros(1, dtype=np.int64)
+    m = lib.edge_table(n, lens.ctypes.data, _pointers(marks[0]),
+                       _pointers(marks[1]), node_bif.ctypes.data,
+                       node_bif.size, _pointers(chars), _pointers(origpos),
+                       k, min_size, n_groups.ctypes.data)
+    if m < 0:
+        raise ValueError("edge_table: a mark names no node or its edge "
+                         "leaves its chromosome")
+    cols = [np.empty(m, dtype=dt) for _, dt in EDGE_COLUMNS]
+    bounds = np.empty((int(n_groups[0]), 2), dtype=np.int64)
+    lib.edge_table_fetch(*(c.ctypes.data for c in cols), bounds.ctypes.data)
+    return cols, bounds
+
+
+def overlap_claims(group: list[tuple[int, int, int]],
+                   overlap: list[np.ndarray], min_size: int):
+    """``blocks/synteny.py::resolve_overlap``'s claims for one group's
+    edges, given as (chromosome, original start, original length), over
+    the occupancy arrays `overlap` (int8, 0 free), which are read and not
+    written.  Returns one (claimed, start of the claimed run, its length)
+    an edge.  None when the library is off."""
+    lib = load()
+    if lib is None:
+        return None
+    rows = []
+    for c, start, length in group:
+        occ = overlap[c]
+        if occ.dtype != np.int8 or not occ.flags.c_contiguous:
+            raise ValueError("overlap_claims: an occupancy array is not "
+                             "contiguous int8")
+        if start < 0 or length < 0:
+            raise ValueError("overlap_claims: a span before its start")
+        rows += (c, start, length, occ.size, occ.ctypes.data)
+    n = len(group)
+    out = (ctypes.c_int64 * (3 * n))()
+    lib.overlap_claims(n, (ctypes.c_int64 * (5 * n))(*rows), min_size, out)
+    it = iter(out)
+    return list(zip(it, it, it))
 
 
 # ---------------------------------------------------------------------------
