@@ -29,7 +29,7 @@ from portbench import run as bench  # noqa: E402
 
 
 def readings(cell, seeds, names, device: str = "cuda") -> list[dict]:
-    table = faults.FAULTS[cell.config["program"]]
+    table = faults.for_config(cell.config)
     rows = []
     for seed in seeds:
         for name in names:

@@ -12,12 +12,19 @@ aligned row; the columns of one alignment; one gap of one alignment
 moved a few columns, as a wrong choice in the band DP or its traceback
 would move it; one gap in a repeat placed one column back, as a wrong
 tie-break would place it).
+
+``FAULTS`` holds them by the judge a configuration names
+(``reference.judge_name``): the fast aligner's (``fast``) plants the
+alignment faults in the rows of its own ``align_pair``, and a tie moved
+one column on, since its traceback puts a tied gap run first.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 
 import numpy as np
+
+from .reference import DEFAULT, judge_name
 
 
 @contextmanager
@@ -166,6 +173,48 @@ def first_pair(transform):
         yield
 
 
+def _gap_tie_on(pair):
+    """The first gap run between two columns of two bases that can move
+    one column on at an equal score (``alignscore.tie_errors``' rule),
+    moved there."""
+    rows = list(pair)
+    for col in range(1, len(rows[0]) - 1):
+        for r in (0, 1):
+            row, other = rows[r], rows[1 - r]
+            if row[col] != "-" or row[col - 1] == "-" or other[col - 1] == "-":
+                continue
+            end = col
+            while end < len(row) and row[end] == "-":
+                end += 1
+            if (end >= len(row) or "-" in (row[end], other[end])
+                    or other[col].upper() != other[end].upper()):
+                continue
+            rows[r] = row[:col] + row[end] + row[col:end] + row[end + 1:]
+            return tuple(rows)
+    return pair
+
+
+@contextmanager
+def fast_pair(transform):
+    """The rows of the first unique pair that the fast aligner aligns,
+    that has a gap and that `transform` changes, changed: the variant
+    caller's own binding of ``align_pair``."""
+    from sibelia_tpu_torch.variants import caller
+    done = [False]
+
+    def make(f):
+        def wrapped(*a, **k):
+            rows = f(*a, **k)
+            if done[0] or "-" not in rows[0] + rows[1]:
+                return rows
+            changed = transform(rows)
+            done[0] = changed != rows
+            return changed
+        return wrapped
+    with patched(caller, "align_pair", make):
+        yield
+
+
 def row_base_altered():
     """One base of an aligned assembly row changed."""
     return first_pair(_base_altered)
@@ -189,19 +238,31 @@ def rows_unaligned():
     return first_pair(_unaligned)
 
 
+# the widest gap run the fast aligner's score windows hold (csibelia_fast's
+# band_half_width: the widest gap its Gotoh kernel closes)
+FAST_WIDEST = 128
 CONTROL = "overlap_unresolved"
+BLOCKS = {"overlap_unresolved": overlap_unresolved,
+          "state_unchanged": state_unchanged,
+          "half_blocks_dropped": half_blocks_dropped,
+          "instance_moved": instance_moved}
 FAULTS = {
-    "sibelia": {"overlap_unresolved": overlap_unresolved,
-                "state_unchanged": state_unchanged,
-                "half_blocks_dropped": half_blocks_dropped,
-                "instance_moved": instance_moved},
-    "csibelia": {"overlap_unresolved": overlap_unresolved,
-                 "state_unchanged": state_unchanged,
-                 "half_blocks_dropped": half_blocks_dropped,
-                 "instance_moved": instance_moved,
-                 "variants_halved": variants_halved,
+    "blocks": BLOCKS,
+    "variants": {**BLOCKS, "variants_halved": variants_halved,
                  "row_base_altered": row_base_altered,
                  "rows_unaligned": rows_unaligned,
                  "gap_shifted": gap_shifted,
                  "gap_tie_back": gap_tie_back},
+    "fast": {**BLOCKS, "variants_halved": variants_halved,
+             "row_base_altered": lambda: fast_pair(_base_altered),
+             "rows_unaligned": lambda: fast_pair(_unaligned),
+             "gap_shifted": lambda: fast_pair(
+                 lambda p: _gap_shifted(p, widest=FAST_WIDEST)),
+             "gap_tie_on": lambda: fast_pair(_gap_tie_on)},
 }
+
+
+def for_config(config: dict) -> dict:
+    """The faults of a configuration's judge; a judge with none of its own
+    takes its program's."""
+    return FAULTS.get(judge_name(config)) or FAULTS[DEFAULT[config["program"]]]

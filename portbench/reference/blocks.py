@@ -7,6 +7,8 @@ a share, that a sound run keeps under the configuration's limit.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..genomes import Inputs
@@ -98,3 +100,9 @@ def judge_blocks(path: str, inputs: Inputs, min_size: int) -> dict[str, float]:
     return {"table_errors": table_errors, "instance_errors": instance_errors,
             "overlap_bases": overlap, "orientation_errors": orientation_errors,
             "nonhomologous_share": worst, "uncovered_share": uncovered}
+
+
+def judge(out: str, inputs: Inputs, config: dict) -> dict[str, float]:
+    """Sibelia's judge: ``judge_blocks`` of the job's blocks_coords.txt."""
+    return judge_blocks(os.path.join(out, "blocks_coords.txt"), inputs,
+                        config["min_block_size"])

@@ -113,6 +113,43 @@ def _forward(row) -> tuple[str, int, int]:
     return src, lo, lo + size
 
 
+def group_key(group) -> frozenset:
+    """A MAF group's instances as (sequence, forward start, end, strand)."""
+    return frozenset((r[0],) + _forward(r)[1:] + (r[3],) for r in group)
+
+
+def instance_key(instances) -> frozenset:
+    """The same of a block's (sequence, strand, start, end) instances."""
+    return frozenset((c, min(s, e) - 1, max(s, e), st)
+                     for c, st, s, e in instances)
+
+
+def unique_pairs(final, ref_names, min_size: int) -> dict[int, tuple]:
+    """{block id: (reference instance, assembly instance)} of the final
+    blocks that are one reference and one assembly instance, each of at
+    least min_size bases: the pairs C-Sibelia aligns alone."""
+    unique = {}
+    for bid, inst in enumerate(final, 1):
+        refs = [x for x in inst if x[0] in ref_names]
+        asms = [x for x in inst if x[0] not in ref_names]
+        if (len(inst) == 2 and len(refs) == 1 and len(asms) == 1
+                and min(abs(x[3] - x[2]) + 1 for x in inst) >= min_size):
+            unique[bid] = (refs[0], asms[0])
+    return unique
+
+
+def stage_blocks(out: str) -> list[list[tuple[str, str, int, int]]]:
+    """The blocks of every stage's blocks_coords file, in stage order, as
+    (sequence name, strand, start, end) instances."""
+    stages = []
+    for path in stage_files(out):
+        table, blocks = parse_coords(path)
+        name = {sid: desc for sid, _, desc in table}
+        stages.append([[(name.get(sid, "?"), strand, start, end)
+                        for sid, strand, start, end, _ in b] for b in blocks])
+    return stages
+
+
 def judge_variants(out: str, inputs: Inputs, min_size: int,
                    scoring: dict, vcf: str = "variant.vcf",
                    maf: str = "alignment.maf") -> dict[str, float]:
@@ -136,17 +173,11 @@ def judge_variants(out: str, inputs: Inputs, min_size: int,
                       from the variants derived again here, and records
                       out of order
     """
-    files = stage_files(out)
-    nums = judge_blocks(files[-1], inputs, min_size)
+    nums = judge_blocks(stage_files(out)[-1], inputs, min_size)
     seq_of = dict(zip(inputs.names, inputs.seqs))
     text_of = {n: s.seq.tobytes().decode() for n, s in seq_of.items()}
     ref_names = {inputs.names[0]}
-    stages = []
-    for path in files:
-        table, blocks = parse_coords(path)
-        name = {sid: desc for sid, _, desc in table}
-        stages.append([[(name.get(sid, "?"), strand, start, end)
-                        for sid, strand, start, end, _ in b] for b in blocks])
+    stages = stage_blocks(out)
     final = stages[-1]
 
     # the MAF against the sequences, the final blocks and the ancestry
@@ -154,12 +185,10 @@ def judge_variants(out: str, inputs: Inputs, min_size: int,
     maf_errors = abs(len(groups) - len(final))
     by_region = {}
     for g in groups:
-        key = frozenset((r[0],) + _forward(r)[1:] + (r[3],) for r in g)
-        by_region[key] = g
+        by_region[group_key(g)] = g
     worst = 0.0
     for inst in final:
-        key = frozenset((c, min(s, e) - 1, max(s, e), st) for c, st, s, e in inst)
-        if key not in by_region:
+        if instance_key(inst) not in by_region:
             maf_errors += 1
     for g in groups:
         cols = []
@@ -193,19 +222,12 @@ def judge_variants(out: str, inputs: Inputs, min_size: int,
 
     # the variants derived again
     want_var: list[tuple[str, str, str, str]] = []
-    unique = {}
-    for bid, inst in enumerate(final, 1):
-        refs = [x for x in inst if x[0] in ref_names]
-        asms = [x for x in inst if x[0] not in ref_names]
-        if (len(inst) == 2 and len(refs) == 1 and len(asms) == 1
-                and min(abs(x[3] - x[2]) + 1 for x in inst) >= min_size):
-            unique[bid] = (refs[0], asms[0])
+    unique = unique_pairs(final, ref_names, min_size)
     table = subst_table(scoring)
     deficit = 0.0
     ties = 0
     for bid, (r, a) in unique.items():
-        key = frozenset((c, min(s, e) - 1, max(s, e), st) for c, st, s, e in (r, a))
-        g = by_region.get(key)
+        g = by_region.get(instance_key((r, a)))
         if g is None:
             continue
         rows = {row[0]: row[5] for row in g}
@@ -295,3 +317,10 @@ def judge_variants(out: str, inputs: Inputs, min_size: int,
                  "score_deficit": deficit, "tie_errors": ties,
                  "vcf_errors": vcf_errors})
     return nums
+
+
+def judge(out: str, inputs: Inputs, config: dict) -> dict[str, float]:
+    """C-Sibelia's judge: ``judge_variants`` under the configuration's
+    ``scoring``."""
+    return judge_variants(out, inputs, config["min_block_size"],
+                          config["scoring"])

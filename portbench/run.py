@@ -41,7 +41,7 @@ if ROOT not in sys.path:
 
 from portbench import trace  # noqa: E402
 from portbench.genomes import Inputs, make_inputs  # noqa: E402
-from portbench.reference import judge  # noqa: E402
+from portbench.reference import judge, load_judge  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "sibelia_tpu")
 KERNEL_LIBS = ["enum_scan", "gotoh", "order_band", "anchors_sweep"]
@@ -72,7 +72,8 @@ class Cell:
 def load_cell(name: str, bench: dict | None = None, root: str = ROOT) -> Cell:
     """A cell by name: its BENCHMARK.json entry, its file under ``cells/``,
     its configuration and traffic files, and the metrics it reports; all
-    found under `root`, a checkout's root."""
+    found under `root`, a checkout's root.  The configuration's judge
+    (``reference.load_judge``) must be there."""
     bench = bench or _json(root, "BENCHMARK.json")
     entry = {w["name"]: w for w in bench["workloads"]}.get(name)
     if entry is None:
@@ -88,7 +89,12 @@ def load_cell(name: str, bench: dict | None = None, root: str = ROOT) -> Cell:
     per_layer = [m for m in bench["per_layer"]
                  if name in m.get("workloads", [name] if m["moves"] in moved
                                   else [])]
-    return Cell(name, entry["chips"], _json(root, conf["file"]),
+    config = _json(root, conf["file"])
+    try:
+        load_judge(config, os.path.join(here, "reference"))
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"{conf['file']} names no judge: {e}")
+    return Cell(name, entry["chips"], config,
                 _json(here, "traffic", f"{entry['traffic']}.json"), e2e,
                 per_layer, root)
 
@@ -172,7 +178,7 @@ def run_job(program: str, argv: list[str], log: str, sync) -> Job:
     launches = {k: v - before.get(k, 0) for k, v in platform.LAUNCHES.items()
                 if v != before.get(k, 0)}
     return Job(t0, t1, rc, argv[argv.index("-o") + 1],
-               dict(timings._ACC), launches)
+               timings.snapshot(), launches)
 
 
 def tree_digest(path: str) -> str:
@@ -307,7 +313,9 @@ def _bench(cell, seed, seconds, traced, device, plant, warm):
         digests = [tree_digest(j.out) if j.rc == 0 else "" for j in jobs]
         checks = {"jobs_differing": sum(d != digests[0] for d in digests[1:])}
         if jobs and jobs[0].rc == 0:
-            checks.update(judge(program, jobs[0].out, inputs, config))
+            checks.update(judge(config, jobs[0].out, inputs,
+                                os.path.join(cell.root, "portbench",
+                                             "reference")))
         limits = config["limits"]
         correct = is_correct(checks, limits, len(jobs), failed)
 

@@ -6,7 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from portbench.faults import _gap_shifted, _gap_tie_back
+from portbench.faults import _gap_shifted, _gap_tie_back, _gap_tie_on
+from portbench.reference.anchored import anchored
 from portbench.reference.alignscore import (best_score, path_score,
                                             subst_table, tie_errors,
                                             worst_deficit)
@@ -96,6 +97,19 @@ def test_a_gap_in_a_repeat_goes_last_and_back_is_a_tie_error():
     assert worst_deficit(*back, SCORING) == 0
     assert tie_errors("ACGTAGCA", "ACG--GCA") == 0
     assert _gap_tie_back(("ACGTAGCA", "ACG--GCA")) == ("ACGTAGCA", "ACG--GCA")
+
+
+def test_a_tie_moved_on_scores_the_same_and_is_not_the_references_rows():
+    """The fast traceback puts a tied gap run first; the fault moves it one
+    column on, which no score window sees and the rows' comparison does."""
+    a, b = b"ACGTTTTGCA", b"ACGTTTGCA"
+    rows = anchored(a, b)
+    assert rows == ("ACGTTTTGCA", "ACG-TTTGCA")
+    moved = _gap_tie_on(rows)
+    assert moved == ("ACGTTTTGCA", "ACGT-TTGCA")
+    assert moved != anchored(a, b)
+    assert worst_deficit(*moved, SCORING) == worst_deficit(*rows, SCORING) == 0
+    assert _gap_tie_on(("ACGTAGCA", "ACG--GCA")) == ("ACGTAGCA", "ACG--GCA")
 
 
 def test_every_limited_number_must_be_there_and_within():

@@ -7,6 +7,7 @@ import shutil
 import pytest
 
 from portbench import run
+from portbench.reference import load_judge
 from portbench.run import ROOT, load_cell, load_metric
 
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -67,3 +68,47 @@ def test_a_new_cell_and_metric_are_files_and_entries_alone(tmp_path):
     assert result["metrics"]["jobs_done.sibelia"]["value"] == 1.0
     old = load_cell(CELLS[0], root=str(tmp_path))
     assert "jobs_done.sibelia" not in {m["name"] for m in old.per_layer}
+
+
+@pytest.mark.parametrize("name,module", [
+    ("sibelia_loose.saureus4", "blocks"),
+    ("csibelia_default.saureus_half_pair", "variants"),
+    ("csibelia_fast.saureus_half_pair", "fast")])
+def test_each_configuration_takes_its_judge(name, module):
+    """Without a ``judge`` key a configuration is judged by its program's
+    module; csibelia_fast names its own."""
+    config = load_cell(name).config
+    assert ("judge" in config) == (module == "fast")
+    assert load_judge(config).__module__ == f"portbench.reference.{module}"
+
+
+def _copy_with_judge(tmp_path, judge):
+    shutil.copytree(os.path.join(ROOT, "portbench"), tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    path = tmp_path / "portbench/configs/sibelia_loose.json"
+    config = json.loads(path.read_text())
+    path.write_text(json.dumps({**config, "judge": judge}))
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("judge", ["no_such_judge", "../run", "alignscore"])
+def test_an_unknown_judge_fails_at_load_cell(tmp_path, judge):
+    root = _copy_with_judge(tmp_path, judge)
+    with pytest.raises(SystemExit, match="names no judge"):
+        load_cell("sibelia_loose.hpylori2", root=root)
+
+
+def test_a_judge_is_a_new_file_and_its_name(tmp_path):
+    root = _copy_with_judge(tmp_path, "mine")
+    (tmp_path / "portbench/reference/mine.py").write_text(
+        "from .blocks import judge as blocks\n\n\n"
+        "def judge(out, inputs, config):\n"
+        "    return {**blocks(out, inputs, config), 'mine': 0}\n")
+    cell = load_cell("sibelia_loose.hpylori2", root=root)
+    found = load_judge(cell.config, os.path.join(root, "portbench", "reference"))
+    assert found.__module__ == "portbench.reference.mine"
+    cell.traffic = {"genomes": "strains", "strains": 2, "length": 210_000,
+                    "layout_seed": 4}
+    result, checks = run.bench(cell, 5, 0.0, False, device="cpu")
+    assert result["correct"] and checks["mine"] == 0, checks

@@ -36,16 +36,16 @@ def test_reference_agrees_with_the_cpu_path(config, seed):
     assert dict(os.environ) == before
 
 
-FAULT_CASES = [(c, f) for c, p in (("sibelia_loose", "sibelia"),
-                                   ("csibelia_default", "csibelia"))
-               for f in faults.FAULTS[p]]
+FAULT_CASES = [(c, f) for c, j in (("sibelia_loose", "blocks"),
+                                   ("csibelia_default", "variants"))
+               for f in faults.FAULTS[j]]
 
 
 @pytest.mark.parametrize("config,fault", FAULT_CASES)
 def test_a_planted_fault_is_not_correct(config, fault):
     cell = small_cell(config)
     result, checks = run.bench(cell, 7, 0.0, False, device="cpu",
-                               plant=faults.FAULTS[cell.config["program"]][fault])
+                               plant=faults.for_config(cell.config)[fault])
     assert not result["correct"], (fault, checks)
 
 
